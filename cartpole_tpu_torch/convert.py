@@ -1,0 +1,38 @@
+"""Cross-over from the JAX package's values, as numpy arrays.
+
+Both functions take plain numpy data (no jax import), so the tests can hand
+the reference's inputs to the port and both packages compute the same
+thing.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .models.params import SingleCartPoleParams
+from .mpc.controller import MPCState
+
+__all__ = ["params_from_numpy", "mpc_state_from_numpy"]
+
+
+def params_from_numpy(d: dict, device="cpu", dtype=torch.float64
+                      ) -> SingleCartPoleParams:
+    """``SingleCartPoleParams`` from the reference's
+    ``SingleCartPoleParams.as_dict()`` converted to numpy: each value a
+    scalar or a ``(B,)`` per-instance array."""
+    return SingleCartPoleParams(**{
+        k: torch.as_tensor(np.array(v), dtype=dtype, device=device)
+        for k, v in d.items()
+    })
+
+
+def mpc_state_from_numpy(previous_solution, warm, device="cpu",
+                         dtype=torch.float64) -> MPCState:
+    """Batched warm-start state: ``previous_solution`` ``(B, dim)``,
+    ``warm`` ``(B,)`` bool."""
+    return MPCState(
+        previous_solution=torch.as_tensor(np.array(previous_solution),
+                                          dtype=dtype, device=device),
+        warm=torch.as_tensor(np.array(warm, bool), device=device),
+    )

@@ -1,0 +1,51 @@
+"""Dynamics parameters of the single cart-pole (counterpart of
+``cartpole_tpu/models/params.py``).
+
+Every field is a tensor: 0-d for one plant shared by the batch, or ``(B,)``
+for per-instance plants. Field order is the order the generated dynamics
+take them in (``models/_single_gen.py``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+__all__ = ["SingleCartPoleParams", "default_single_params"]
+
+
+@dataclasses.dataclass(frozen=True)
+class SingleCartPoleParams:
+    """Physical parameters of the cart + single pole system."""
+
+    m_b: Any = 1.0  #: Mass of the base / cart (kg).
+    m_1: Any = 0.1  #: Point mass at the pole tip (kg).
+    l_1: Any = 0.25  #: Pole length (m).
+    g: Any = 9.81  #: Gravitational acceleration (m/s^2).
+    mu_b: Any = 0.03  #: Coulomb friction coefficient at the base.
+    v_mu_b: Any = 0.1  #: Cutoff velocity of the smoothed Coulomb model (m/s).
+    c_d_1: Any = 0.13  #: Air-drag coefficient on the pole mass (rho*C_d*A).
+    x_s: Any = 0.8  #: Position of the boundary bumper springs (m).
+    k_s: Any = 100.0  #: Bumper spring constant (N/m).
+
+    def as_dict(self) -> dict:
+        return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
+
+    def as_tuple(self) -> tuple:
+        """Fields in the generated dynamics' argument order."""
+        return tuple(getattr(self, f.name) for f in dataclasses.fields(self))
+
+    def to(self, dtype=None, device=None) -> "SingleCartPoleParams":
+        return SingleCartPoleParams(**{
+            k: torch.as_tensor(v, dtype=dtype, device=device)
+            for k, v in self.as_dict().items()
+        })
+
+
+def default_single_params(dtype=torch.float32, device="cpu"
+                          ) -> SingleCartPoleParams:
+    """The nominal system of the reference closed-loop test, as 0-d
+    tensors."""
+    return SingleCartPoleParams().to(dtype=dtype, device=device)

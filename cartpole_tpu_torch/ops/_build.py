@@ -1,0 +1,80 @@
+"""Build and load the port's CUDA kernels.
+
+``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds), which is loaded
+with ``ctypes``. The library lands in ``cartpole_tpu_torch/_build/`` under a
+name keyed by a hash of the sources and flags, so it is rebuilt whenever a
+source changes. Nothing is built at import: the first launch builds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+
+__all__ = ["NVCC_FLAGS", "build_library", "load_library"]
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+
+#: No fast math: IEEE division and sqrt and denormals stay (qp_ok and the
+#: merit depend on inf and isfinite). ``-Xptxas -v`` reports registers and
+#: spills.
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu"))
+                  + glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
+                           "build the fused kernel")
+    return path
+
+
+def build_library() -> tuple[str, str]:
+    """Compile the kernels if the library for the current sources is
+    missing. Returns ``(path, compiler output)``; the output is empty when
+    the library was already built."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(os.path.basename(src).encode())
+        with open(src, "rb") as f:
+            h.update(f.read())
+    path = os.path.join(BUILD_DIR, f"libcartpole_kernels_{h.hexdigest()[:16]}.so")
+    if os.path.exists(path):
+        return path, ""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *glob.glob(os.path.join(CSRC, "*.cu"))]
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, path)
+    return path, proc.stdout + proc.stderr
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build if needed, load, and declare the launcher's C signature."""
+    from .fused import _ArgsF, _Tensors
+
+    path, _ = build_library()
+    lib = ctypes.CDLL(path)
+    fn = lib.fused_iteration_launch_f32
+    fn.argtypes = [_Tensors, _ArgsF, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
