@@ -2,7 +2,8 @@
 
 Both functions take plain numpy data (no jax import), so the tests can hand
 the reference's inputs to the port and both packages compute the same
-thing.
+thing. Like every entry point of the port they put their tensors on the
+card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from .mpc.controller import MPCState
 __all__ = ["params_from_numpy", "mpc_state_from_numpy"]
 
 
-def params_from_numpy(d: dict, device="cpu", dtype=torch.float64
+def params_from_numpy(d: dict, device="cuda", dtype=torch.float64
                       ) -> SingleCartPoleParams:
     """``SingleCartPoleParams`` from the reference's
     ``SingleCartPoleParams.as_dict()`` converted to numpy: each value a
@@ -27,7 +28,7 @@ def params_from_numpy(d: dict, device="cpu", dtype=torch.float64
     })
 
 
-def mpc_state_from_numpy(previous_solution, warm, device="cpu",
+def mpc_state_from_numpy(previous_solution, warm, device="cuda",
                          dtype=torch.float64) -> MPCState:
     """Batched warm-start state: ``previous_solution`` ``(B, dim)``,
     ``warm`` ``(B,)`` bool."""

@@ -18,11 +18,13 @@
 // solves run in one launch: the carry stays in the thread for all n_iter
 // iterations (the reference's single_launch semantics).
 //
-// Every function here is __host__ __device__ and templated on the real type
-// T, so host_check.cc compiles the same body with g++ for T=double.
+// Stage 1 (the segment rollout with chain-ruled Jacobians) is kernel 2's
+// arithmetic, shared through segment_jac.cuh. Every function here is
+// __host__ __device__ and templated on the real type T, so host_check.cc
+// compiles the same body with g++ for T=double.
 #pragma once
 
-#include "single_dynamics.cuh"
+#include "segment_jac.cuh"
 
 namespace fused {
 
@@ -89,8 +91,6 @@ struct FusedTensors {
   int* tr_applied;
 };
 
-__host__ __device__ inline float fmod_t(float a, float b) { return fmodf(a, b); }
-__host__ __device__ inline double fmod_t(double a, double b) { return fmod(a, b); }
 __host__ __device__ inline float abs_t(float a) { return fabsf(a); }
 __host__ __device__ inline double abs_t(double a) { return fabs(a); }
 __host__ __device__ inline float sqrt_t(float a) { return sqrtf(a); }
@@ -111,19 +111,11 @@ __host__ __device__ inline T clip_t(T x, T lo, T hi) {
   return x < lo ? lo : (x > hi ? hi : x);  // NaN passes through
 }
 
-// Wrap to (-pi, pi]: pi - mod(pi - a, 2 pi) with jnp.mod's sign rule.
-template <typename T>
-__host__ __device__ inline T mod_pi(T a) {
-  const T pi = T(3.14159265358979323846);
-  const T two_pi = T(6.28318530717958647692);
-  T r = fmod_t(pi - a, two_pi);
-  if (r < T(0)) r += two_pi;
-  return pi - r;
-}
+using segjac::mod_pi;
 
 template <typename T>
 __host__ __device__ inline T wrap(const FusedArgs<T>& a, int i, T v) {
-  return ((a.angle_mask >> i) & 1) ? mod_pi(v) : v;
+  return segjac::wrap(a.angle_mask, i, v);
 }
 
 // One RK4 step (no Jacobians) followed by the angle wrap; x updated in place.
@@ -141,94 +133,6 @@ __host__ __device__ inline void rk4_step(const FusedArgs<T>& a, const T* p,
   for (int i = 0; i < SD; ++i)
     x[i] = wrap(a, i, x[i] + a.h_sixth * (k1[i] + T(2) * k2[i] +
                                           T(2) * k3[i] + k4[i]));
-}
-
-// dk_dx = Aj @ (I + c * Aprev); dk_du = Aj @ (c * Bprev) + Bj.
-template <typename T>
-__host__ __device__ inline void stage_jac(const T* Aj, const T* Bj,
-                                          const T* Aprev, const T* Bprev,
-                                          T c, T* dk_dx, T* dk_du) {
-  for (int i = 0; i < SD; ++i) {
-    for (int j = 0; j < SD; ++j) {
-      T acc = T(0);
-      for (int k = 0; k < SD; ++k)
-        acc += Aj[i * SD + k] * ((k == j ? T(1) : T(0)) + c * Aprev[k * SD + j]);
-      dk_dx[i * SD + j] = acc;
-    }
-    T acc = T(0);
-    for (int k = 0; k < SD; ++k) acc += Aj[i * SD + k] * (c * Bprev[k]);
-    dk_du[i] = acc + Bj[i];
-  }
-}
-
-// One RK4 step with its chain-ruled step Jacobians A = dx'/dx (row-major),
-// Bv = dx'/du (integration.hpp:13-49); x updated in place and wrapped (the
-// wrap has unit derivative).
-template <typename T>
-__host__ __device__ inline void rk4_step_jac(const FusedArgs<T>& a,
-                                             const T* p, T* x, T u, T* A,
-                                             T* Bv) {
-  T k1[SD], k2[SD], k3[SD], k4[SD], xt[SD];
-  T A1[SD * SD], A2[SD * SD], A3[SD * SD], A4[SD * SD];
-  T B1[SD], B2[SD], B3[SD], B4[SD];
-  T d2[SD * SD], d3[SD * SD], d4[SD * SD], d2u[SD], d3u[SD], d4u[SD];
-  cartpole_gen::single_dynamics_jac_core(p, x, u, k1, A1, B1);
-  for (int i = 0; i < SD; ++i) xt[i] = x[i] + a.h_half * k1[i];
-  cartpole_gen::single_dynamics_jac_core(p, xt, u, k2, A2, B2);
-  stage_jac(A2, B2, A1, B1, a.h_half, d2, d2u);
-  for (int i = 0; i < SD; ++i) xt[i] = x[i] + a.h_half * k2[i];
-  cartpole_gen::single_dynamics_jac_core(p, xt, u, k3, A3, B3);
-  stage_jac(A3, B3, d2, d2u, a.h_half, d3, d3u);
-  for (int i = 0; i < SD; ++i) xt[i] = x[i] + a.dt * k3[i];
-  cartpole_gen::single_dynamics_jac_core(p, xt, u, k4, A4, B4);
-  stage_jac(A4, B4, d3, d3u, a.dt, d4, d4u);
-  for (int i = 0; i < SD; ++i) {
-    x[i] = wrap(a, i, x[i] + a.h_sixth * (k1[i] + T(2) * k2[i] +
-                                          T(2) * k3[i] + k4[i]));
-    for (int j = 0; j < SD; ++j) {
-      const int e = i * SD + j;
-      A[e] = (i == j ? T(1) : T(0)) +
-             a.h_sixth * (A1[e] + T(2) * d2[e] + T(2) * d3[e] + d4[e]);
-    }
-    Bv[i] = a.h_sixth * (B1[i] + T(2) * d2u[i] + T(2) * d3u[i] + d4u[i]);
-  }
-}
-
-// Stage 1: one shooting segment of `steps` RK4 steps from x0 with the
-// accumulated Jacobians Jx = dx_end/dx0 (row-major SD x SD) and
-// Ju[t * SD + i] = d x_end[i] / d us[t]. The same arithmetic as the TPU's
-// second kernel (ops/pallas_kernels.py::segment_jac_batch_last).
-template <typename T>
-__host__ __device__ inline void segment_rollout_with_jac(
-    const FusedArgs<T>& a, const T* p, const T* x0, const T* us, int steps,
-    T* x_end, T* Jx, T* Ju) {
-  T x[SD];
-  for (int i = 0; i < SD; ++i) {
-    x[i] = x0[i];
-    for (int j = 0; j < SD; ++j) Jx[i * SD + j] = (i == j) ? T(1) : T(0);
-  }
-  for (int k = 0; k < steps; ++k) {
-    T A[SD * SD], Bv[SD], tmp[SD * SD];
-    rk4_step_jac(a, p, x, us[k], A, Bv);
-    for (int i = 0; i < SD; ++i)
-      for (int j = 0; j < SD; ++j) {
-        T acc = T(0);
-        for (int q = 0; q < SD; ++q) acc += A[i * SD + q] * Jx[q * SD + j];
-        tmp[i * SD + j] = acc;
-      }
-    for (int e = 0; e < SD * SD; ++e) Jx[e] = tmp[e];
-    for (int c = 0; c < k; ++c) {
-      T col[SD];
-      for (int i = 0; i < SD; ++i) col[i] = Ju[c * SD + i];
-      for (int i = 0; i < SD; ++i) {
-        T acc = T(0);
-        for (int q = 0; q < SD; ++q) acc += A[i * SD + q] * col[q];
-        Ju[c * SD + i] = acc;
-      }
-    }
-    for (int i = 0; i < SD; ++i) Ju[k * SD + i] = Bv[i];
-  }
-  for (int i = 0; i < SD; ++i) x_end[i] = x[i];
 }
 
 // Per-instance iteration carry, held in the thread across iterations.
@@ -328,8 +232,9 @@ __host__ __device__ inline void fused_iteration(
   for (int s = 0; s < S; ++s) {
     T x0[SD], xe[SD];
     for (int i = 0; i < SD; ++i) x0[i] = c.xs[i][s];
-    segment_rollout_with_jac(a, p, x0, &c.u[s * sp], sp, xe, Jx[s],
-                             &Ju[s * sp][0]);
+    segjac::segment_rollout_with_jac<segjac::SingleCartPole>(
+        p, x0, &c.u[s * sp], sp, a.dt, a.h_half, a.h_sixth, a.angle_mask, xe,
+        Jx[s], &Ju[s * sp][0]);
     for (int i = 0; i < SD; ++i)
       defect[s][i] = wrap(a, i, xe[i] - c.xs[i][s + 1]);
   }

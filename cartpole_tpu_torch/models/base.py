@@ -25,6 +25,8 @@ class CartPoleModel:
     angle_indices: Tuple[int, ...]
     #: Constructor for the parameter dataclass.
     params_type: type
+    #: f(params, x, u, f_base=None, f_mass=None) -> x_dot, packed (sd, ...).
+    dynamics: Callable[..., Any]
     #: f(params, x_rows, u) -> x_dot_rows (tuples of per-coordinate tensors).
     dynamics_core: Callable[..., Any]
     #: fj(params, x_rows, u) -> (x_dot_rows, J_x_rows, J_u_rows).
@@ -36,6 +38,7 @@ SINGLE_CARTPOLE = CartPoleModel(
     state_dim=_single.STATE_DIM,
     angle_indices=_single.ANGLE_INDICES,
     params_type=SingleCartPoleParams,
+    dynamics=_single.single_cartpole_dynamics,
     dynamics_core=_single.single_cartpole_dynamics_core,
     dynamics_jac_core=_single.single_cartpole_dynamics_jac_core,
 )

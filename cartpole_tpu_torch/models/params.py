@@ -44,8 +44,8 @@ class SingleCartPoleParams:
         })
 
 
-def default_single_params(dtype=torch.float32, device="cpu"
+def default_single_params(dtype=torch.float32, device="cuda"
                           ) -> SingleCartPoleParams:
     """The nominal system of the reference closed-loop test, as 0-d
-    tensors."""
+    tensors on ``device`` (the card unless the caller asks for the CPU)."""
     return SingleCartPoleParams().to(dtype=dtype, device=device)

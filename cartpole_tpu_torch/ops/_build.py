@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds), which is loaded
-with ``ctypes``. The library lands in ``cartpole_tpu_torch/_build/`` under a
-name keyed by a hash of the sources and flags, so it is rebuilt whenever a
-source changes. Nothing is built at import: the first launch builds.
+``nvcc`` compiles each ``csrc/*.cu`` to an object, all sources at once in
+parallel, and links them into one shared library with a plain C interface
+(no PyTorch headers, so a build takes seconds), which is loaded with
+``ctypes``. The library lands in ``cartpole_tpu_torch/_build/`` under a name
+keyed by a hash of the sources and flags, so it is rebuilt whenever a source
+changes. Nothing is built at import: the first launch builds.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 #: merit depend on inf and isfinite). ``-Xptxas -v`` reports registers and
 #: spills.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def _sources():
@@ -39,8 +40,24 @@ def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
         raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                           "build the fused kernel")
+                           "build the kernels")
     return path
+
+
+def _run(procs):
+    """Wait for every ``(name, Popen)``; raise on the first failure."""
+    logs = []
+    for name, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            for _, p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            raise RuntimeError(f"nvcc failed on {name} ({proc.returncode}):"
+                               f"\n{out}")
+        logs.append(f"== {name}\n{out}")
+    return "".join(logs)
 
 
 def build_library() -> tuple[str, str]:
@@ -52,24 +69,35 @@ def build_library() -> tuple[str, str]:
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             h.update(f.read())
-    path = os.path.join(BUILD_DIR, f"libcartpole_kernels_{h.hexdigest()[:16]}.so")
+    key = h.hexdigest()[:16]
+    path = os.path.join(BUILD_DIR, f"libcartpole_kernels_{key}.so")
     if os.path.exists(path):
         return path, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *glob.glob(os.path.join(CSRC, "*.cu"))]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
+    nvcc = _nvcc()
+    tag = f"{key}.{os.getpid()}"
+    objs, procs = [], []
+    for src in sorted(glob.glob(os.path.join(CSRC, "*.cu"))):
+        obj = os.path.join(
+            BUILD_DIR, f"{os.path.basename(src)[:-3]}.{tag}.o")
+        objs.append(obj)
+        procs.append((os.path.basename(src), subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log = _run(procs)
+    tmp = f"{path}.{tag}.tmp"
+    log += _run([("link", subprocess.Popen(
+        [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))])
+    for obj in objs:
+        os.remove(obj)
     os.replace(tmp, path)
-    return path, proc.stdout + proc.stderr
+    return path, log
 
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
-    """Build if needed, load, and declare the launcher's C signature."""
+    """Build if needed, load, and declare the launchers' C signatures."""
     from .fused import _ArgsF, _Tensors
 
     path, _ = build_library()
@@ -77,4 +105,10 @@ def load_library() -> ctypes.CDLL:
     fn = lib.fused_iteration_launch_f32
     fn.argtypes = [_Tensors, _ArgsF, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    for name, real in (("segment_jac_launch_f32", ctypes.c_float),
+                       ("segment_jac_launch_f64", ctypes.c_double)):
+        fn = getattr(lib, name)
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
+                       + [real] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     return lib

@@ -41,7 +41,7 @@ from .lanes import rk4_step_rows, segment_rollout_with_jac_rows
 from .solver import NLSConfig, NLSTerminationState
 
 __all__ = ["FusedStatics", "make_fused_statics", "fused_iteration_reference",
-           "fused_solve"]
+           "fused_solve", "fused_supported", "full_f32_matmul"]
 
 #: Compile-time maxima of the kernel (csrc/fused_iteration.cuh).
 KMAX, NMAX, ALLMAX, LSMAX = 64, 17, 4, 8
@@ -122,18 +122,45 @@ def make_fused_statics(spec, config: NLSConfig, Hu_Q, Hu_eigs, Ju_cost,
 
 @contextlib.contextmanager
 def full_f32_matmul():
-    """Pin f32 matmuls to full f32 (no TF32) for the duration, as the
-    reference pins HIGHEST precision (mpc/lanes.py:552,
-    ops/fused.py:209-211)."""
-    saved = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    """Run f32 matmuls at full f32 precision (no TF32, no bf16 passes) for
+    the duration, whatever the caller's global setting, and restore that
+    setting on exit, as the reference pins HIGHEST precision
+    (mpc/lanes.py:552, ops/fused.py:209-211). Uses the per-backend
+    ``fp32_precision`` settings where torch has them (mixing them with the
+    global getter raises there), else the global one."""
+    backends = [b for b in (torch.backends.cuda.matmul,
+                            torch.backends.mkldnn.matmul)
+                if hasattr(b, "fp32_precision")]
+    if backends:
+        saved = [b.fp32_precision for b in backends]
+        for b in backends:
+            b.fp32_precision = "ieee"
+    else:
+        saved = torch.get_float32_matmul_precision()
+        torch.set_float32_matmul_precision("highest")
     try:
         yield
     finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = saved
+        if backends:
+            for b, v in zip(backends, saved):
+                b.fp32_precision = v
+        else:
+            torch.set_float32_matmul_precision(saved)
+
+
+def fused_supported(problem, config) -> bool:
+    """Whether the fused kernel covers this problem configuration
+    (reference ``ops/fused.py:60-70``): generated-core dynamics, dynamics
+    params 0-d or per-instance ``(B,)``, and no equality re-basing with
+    terminal equalities."""
+    spec = problem.spec
+    model = spec.model
+    if model.dynamics_jac_core is None or model.dynamics_core is None:
+        return False
+    if spec.params.rebase_equalities and len(spec.terminal_eqs):
+        return False
+    return all(tuple(getattr(leaf, "shape", ())) in ((), (problem.B,))
+               for leaf in problem.dynamics_params.as_tuple())
 
 
 def _fold_sum(terms, like):

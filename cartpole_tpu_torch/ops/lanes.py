@@ -1,10 +1,12 @@
-"""Rows-form (structure-of-arrays) integration ops, batch-last
-(counterpart of ``cartpole_tpu/ops/lanes.py:187-415``).
+"""Batch-last integration ops (counterpart of ``cartpole_tpu/ops/lanes.py``).
 
-A state is a TUPLE of per-coordinate tensors sharing one trailing batch
-shape; Jacobians are nested tuples whose entries are tensors or the Python
-literals ``0.0``/``1.0``, which the products below fold away. Each
-``lax.scan`` of the reference is a Python loop here.
+Packed form: a state is one ``(sd, M)`` tensor and a Jacobian ``(sd, sd,
+M)``; the tiny matrix products are broadcast-multiply-reduce over the
+trailing lane axis. Rows form (structure of arrays): a state is a TUPLE of
+per-coordinate tensors sharing one trailing batch shape, and Jacobians are
+nested tuples whose entries are tensors or the Python literals
+``0.0``/``1.0``, which the products below fold away. Each ``lax.scan`` of
+the reference is a Python loop here.
 """
 
 from __future__ import annotations
@@ -16,12 +18,51 @@ import torch
 from .integrate import mod_pi
 
 __all__ = [
+    "bmat",
+    "bmv",
+    "beye",
+    "wrap_angles_lanes",
+    "rk4_step_lanes",
     "wrap_angles_rows",
     "rk4_step_rows",
     "rollout_rows",
     "rk4_step_with_jac_rows",
     "segment_rollout_with_jac_rows",
+    "segment_rollout_with_jac_scan",
 ]
+
+
+def bmat(A, B):
+    """Batched tiny-matrix product ``(i,j,M) x (j,k,M) -> (i,k,M)``."""
+    return torch.sum(A[:, :, None] * B[None, :, :], dim=1)
+
+
+def bmv(A, x):
+    """Batched tiny matrix-vector product ``(i,j,M) x (j,M) -> (i,M)``."""
+    return torch.sum(A * x[None, :, :], dim=1)
+
+
+def beye(n, dtype, device=None):
+    """Identity broadcastable against ``(n, n, M)``."""
+    return torch.eye(n, dtype=dtype, device=device)[:, :, None]
+
+
+def wrap_angles_lanes(x, angle_indices: Tuple[int, ...]):
+    """``mod_pi`` the given leading coordinates of ``x`` (sd, M); returns a
+    new tensor."""
+    return torch.stack([
+        mod_pi(x[i]) if i in angle_indices else x[i]
+        for i in range(x.shape[0])
+    ])
+
+
+def rk4_step_lanes(f: Callable, x, u, h):
+    """One RK4 step, batch-last: ``x`` (sd, M), ``u`` (M,)."""
+    k1 = f(x, u)
+    k2 = f(x + k1 * (h * 0.5), u)
+    k3 = f(x + k2 * (h * 0.5), u)
+    k4 = f(x + k3 * h, u)
+    return x + (h / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
 
 
 def _axpy_rows(x_rows, k_rows, a):
@@ -215,3 +256,41 @@ def segment_rollout_with_jac_rows(fj: Callable, x0_rows, us, h,
         cols = [_matvec_rows(A, c, sd) for c in cols]
         cols.append(B)
     return x, Jx, cols
+
+
+def segment_rollout_with_jac_scan(fj: Callable, x0_rows, us, h,
+                                  angle_indices: Tuple[int, ...] = ()):
+    """Shooting-segment Jacobian rollout: rows inside, packed out.
+
+    The per-step dynamics and within-step RK4 chain rule run in rows form;
+    the cross-step accumulation (``Jx = A_k Jx``, the ``Ju`` column
+    updates) runs packed afterwards. ``x0_rows`` row tuple of ``(M,)``;
+    ``us`` ``(T, M)``. Returns packed ``(x_end (sd, M), Jx (sd, sd, M), Ju
+    (sd, T, M))``, the contract of the reference's function of the same
+    name.
+    """
+    sd = len(x0_rows)
+    T, M = us.shape
+    like = us[0]
+
+    def pack_mat(A_rows):
+        return torch.stack([
+            torch.stack([torch.broadcast_to(torch.as_tensor(
+                e, dtype=like.dtype, device=like.device), (M,)) for e in row])
+            for row in A_rows
+        ])
+
+    x = tuple(x0_rows)
+    As, Bs = [], []
+    for k in range(T):
+        x, A, B = rk4_step_with_jac_rows(fj, x, us[k], h)
+        x = wrap_angles_rows(x, angle_indices)
+        As.append(pack_mat(A))
+        Bs.append(torch.stack(B))
+    Jx = beye(sd, like.dtype, like.device).expand(sd, sd, M)
+    cols = []
+    for k in range(T):
+        Jx = bmat(As[k], Jx)
+        cols = [bmv(As[k], c) for c in cols]
+        cols.append(Bs[k])
+    return torch.stack(x), Jx, torch.stack(cols, dim=1)

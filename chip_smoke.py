@@ -1,20 +1,30 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
 
-Drives the port's main path — the batched closed-loop MPC of
-``cartpole_tpu_torch.run_closed_loop_lanes`` with the fused Gauss-Newton
-kernel — at the bench point of the JAX package (single cart-pole, condensed
-KKT, f32, batch 4096, window 40, spacing 5, 8 GN iterations, 5 line-search
-trials, 300 ticks from bench.py's swing-up initial states, seed 0), after
-building the kernel from ``cartpole_tpu_torch/csrc`` and holding it against
-its plain PyTorch version on the card.
+Drives both solve paths of ``cartpole_tpu_torch.run_closed_loop_lanes`` at
+the bench point of the JAX package (single cart-pole, condensed KKT, f32,
+batch 4096, window 40, spacing 5, 8 GN iterations, 5 line-search trials,
+bench.py's swing-up initial states, seed 0):
 
-Phases, each fatal on failure: device, build, kernel against plain version
-(cold-start problem), main path, kernel against plain version (the
-warm-start problems after tick 1 and after the last tick of the main path),
-timings. The gates of each comparison are in ``check_compare``. Prints the card's name and
-power limit, one JSON line describing the kernel, and as its last line
-``{"ok": true, "device": {...}}``.
+* path 1, ``fused=True``: the whole solve as one launch of kernel 1
+  (``csrc/fused_iteration.cu``), 300 ticks;
+* path 2, ``fused=False``: the reference's XLA-lanes body, whose
+  linearization is one launch of kernel 2 (``csrc/segment_jac.cu``) per GN
+  iteration, the rest eager torch (``TICKS_PATH2`` ticks).
+
+Phases, each fatal on failure: device; build (both kernels in one library,
+one nvcc per source in parallel); segment_jac (kernel 2 against its plain
+version, f64 and f32, on random columns and on the cold-start shooting
+problem); kernel 1 against its plain version (cold start); path 1; kernel 1
+against its plain version (warm starts after tick 1 and the last tick);
+disturbed (100 ticks of path 1 with a shove at the pole mass); path 2;
+cross (path 2 against path 1 on the cold-start problem, and path 2 under
+``torch.set_float32_matmul_precision("high")``); timing and a profile of
+one tick of each path (device-busy share, kernel launches). Every kernel
+launch counter is set to 0 just before a path is driven and read just
+after. Prints the card's name and power limit beside every number, one JSON
+line describing the kernels, and as its last line ``{"ok": true, "device":
+{...}}``.
 
 Usage: python3 chip_smoke.py
 Needs one CUDA device, nvcc (CUDA toolkit) and the repository beside it.
@@ -22,6 +32,7 @@ Needs one CUDA device, nvcc (CUDA toolkit) and the repository beside it.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -31,10 +42,18 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import cartpole_tpu_torch as pt
 from cartpole_tpu_torch.mpc import lanes
 from cartpole_tpu_torch.ops import _build, fused
+from cartpole_tpu_torch.ops import pallas_kernels as pk
+
+BATCH, TICKS, TICKS_PATH2, TICKS_DISTURBED = 4096, 300, 300, 100
+#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s off the
+#: tensor cores.
+PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 
 
 def _card() -> str:
@@ -56,35 +75,216 @@ def bench_x0s(n: int, seed: int = 0) -> np.ndarray:
     return x0s
 
 
+def _upright_error(th):
+    """|th - pi/2| wrapped to [0, pi]."""
+    return np.abs(np.mod(th - math.pi / 2 + math.pi, 2 * math.pi) - math.pi)
+
+
 def upright_fraction(xf: np.ndarray) -> float:
     """bench.py's definition: pole within 0.1 rad of upright."""
-    th = xf[:, 1]
-    return float(np.mean(
-        np.abs(np.mod(th - math.pi / 2 + math.pi, 2 * math.pi) - math.pi)
-        < 0.1))
+    return float(np.mean(_upright_error(xf[:, 1]) < 0.1))
 
 
+def reset_counts():
+    fused.fused_solve.launches = 0
+    pk.segment_jac_batch_last.launches = 0
+
+
+def counts():
+    return dict(fused_iteration=fused.fused_solve.launches,
+                segment_jac=pk.segment_jac_batch_last.launches)
+
+
+# ------------------------------------------------------------- op counting
+_ELEMENTWISE = {
+    "add", "sub", "rsub", "mul", "div", "neg", "abs", "sin", "cos", "tanh",
+    "sqrt", "rsqrt", "reciprocal", "pow", "maximum", "minimum", "clamp",
+    "clamp_min", "clamp_max", "where", "remainder", "fmod", "gt", "lt", "ge",
+    "le", "eq", "ne", "logical_and", "logical_or", "logical_not",
+    "bitwise_and", "bitwise_or", "bitwise_not", "isfinite", "isnan", "exp",
+    "log", "sign", "floor",
+}
+_REDUCTIONS = {"sum", "amax", "amin", "max", "min", "any", "all", "argmax",
+               "mean"}
+
+
+class OpCounter(TorchDispatchMode):
+    """Arithmetic operations of a plain-version call, as torch dispatches
+    them: one per output element of an elementwise op, one per input
+    element of a reduction, 2mnk per matrix product. Copies, views and
+    allocations count nothing."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        name = func.overloadpacket.__name__.rstrip("_")
+        if name in ("mm", "addmm", "bmm"):
+            a, b = (args[1], args[2]) if name == "addmm" else args[:2]
+            self.ops += 2 * a.numel() * b.shape[-1]
+        elif name in _REDUCTIONS:
+            self.ops += args[0].numel()
+        elif name in _ELEMENTWISE and isinstance(out, torch.Tensor):
+            self.ops += out.numel()
+        return out
+
+
+def count_ops(fn) -> int:
+    with OpCounter() as c:
+        fn()
+    return c.ops
+
+
+def bound(n_bytes: float, n_ops: float):
+    """Least time on the card (ms) for the work, and what bounds it."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES, n_ops / PEAK_F32
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def time_cuda(fn, reps):
+    """Mean ms per call of ``fn`` over ``reps`` calls, by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def time_host(fn, reps):
+    """Mean ms per synchronised call of ``fn`` by the host clock."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def profile_ticks(mpc, dp, x, mst, fused_flag, n=1):
+    """``n`` warm ticks under ``torch.profiler``: wall ms, device-busy ms
+    (sum of the CUDA kernels' self time), and kernel launches, per tick."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            r = pt.run_closed_loop_lanes(mpc, x, dp, 1, mpc_state=mst,
+                                         fused=fused_flag)
+            x, mst = r.final_state, r.final_mpc_state
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy_us, launches = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy_us += e.self_device_time_total
+        elif e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                       "cuLaunchKernel"):
+            launches += e.count
+    return dict(wall_ms=wall / n, device_busy_ms=busy_us / 1e3 / n,
+                device_idle_share=1 - busy_us / 1e3 / wall,
+                launches=launches / n)
+
+
+# ------------------------------------------------------------- kernel 2
+def segment_inputs_random(R, sp, dev, seed=0):
+    rng = np.random.RandomState(seed)
+    xs = rng.uniform(-1, 1, (4, R)) * np.array([[1.0], [4.0], [3.0], [8.0]])
+    us = rng.uniform(-10, 10, (sp, R))
+    dp = pt.default_single_params(torch.float64, dev)
+    p = fused.params_block(dp, R, torch.float64, dev)
+    return p, torch.as_tensor(xs, device=dev), torch.as_tensor(us, device=dev)
+
+
+def segment_inputs_problem(problem, Z):
+    """The linearization inputs of ``condensed_step``, in f64."""
+    x_start, useg = problem._fold_segments(Z)
+    p = lanes._fold_lanes(fused.params_block(
+        problem.dynamics_params, problem.B, Z.u.dtype, Z.u.device),
+        problem.S, problem.B)
+    return tuple(t.double().contiguous() for t in (p, x_start, useg))
+
+
+def check_segment_jac(tag, inputs, h, angle, card):
+    """Kernel 2 against its plain version on the same inputs: f64 kernel
+    vs f64 plain within 1e-12 x max(1, |value|) on every output; f32
+    kernel vs f64 plain at most twice the f32 plain version's error (99.9th
+    percentile over columns of each output's worst element)."""
+    p64, x64, u64 = inputs
+    k64 = pk.segment_jac_batch_last(p64, x64, u64, h, angle)
+    ref = pk.segment_jac_batch_last_reference(p64, x64, u64, h, angle)
+    f32 = tuple(t.float() for t in inputs)
+    k32 = pk.segment_jac_batch_last(*f32, h, angle)
+    p32 = pk.segment_jac_batch_last_reference(*f32, h, angle)
+    torch.cuda.synchronize()
+    out, ok = {}, True
+    for name, a64, a32, b32, r in zip(("x_end", "Jx", "Ju"), k64, k32, p32,
+                                      ref):
+        scale = torch.clamp_min(r.abs(), 1.0)
+        e64 = float(((a64 - r).abs() / scale).max())
+
+        def p999(a):
+            e = ((a.double() - r).abs() / scale).reshape(-1, r.shape[-1])
+            return float(torch.quantile(e.amax(0), 0.999))
+
+        ek, ep = p999(a32), p999(b32)
+        finite = bool(torch.isfinite(a64).all() and torch.isfinite(a32).all())
+        ok &= finite and e64 <= 1e-12 and ek <= 2 * ep
+        out[name] = dict(f64_max_rel=e64, f32_kernel_p999=ek,
+                         f32_plain_p999=ep, finite=finite)
+    max_abs = max(float((a - b).abs().max()) for a, b in zip(k32, p32))
+    print(f"[segment_jac] {tag}, R={x64.shape[1]}: {json.dumps(out)}; "
+          f"f32 kernel vs f32 plain max abs {max_abs:.3e}  ({card})",
+          flush=True)
+    if not ok:
+        raise SystemExit(f"[segment_jac] {tag}: kernel disagrees with its "
+                         f"plain version")
+    return max_abs
+
+
+# ------------------------------------------------------------- kernel 1
 def _plain_solve(args, carry, n_iter):
     rows = []
     for _ in range(n_iter):
         outs = fused.fused_iteration_reference(*args, *carry)
         carry, tr = outs[:8], outs[8:]
         rows.append(tr)
-    return carry, rows
+    return carry, tuple(torch.stack([r[k] for r in rows]) for k in range(6))
 
 
-def _agreement(ca, ta, cb, tb):
+def path_of(carry, traces):
+    """The path of a kernel-1 style solve: termination codes, iteration
+    counts, accepted step sizes (iters, B), controls (K, B)."""
+    return dict(term=carry[6], iters=traces[5].sum(0), alpha=traces[3],
+                u=carry[1])
+
+
+def path_of_outputs(Z, out):
+    """The same for a ``_solve_lanes`` result."""
+    return dict(term=out.termination_state, iters=out.n_iterations,
+                alpha=out.iter_step_size.T, u=Z.u)
+
+
+def _agreement(a, b):
     """Instances that took the same path — identical termination codes,
     iteration counts and accepted step sizes in every iteration — and max
     |du| over them (relative to mean |u| there). An instance whose Armijo
     test sits on its bound can accept a step one iteration earlier or later
     under either rounding; it then ends elsewhere and is counted as
     differing, not folded into the error of the instances that agree."""
-    term_same = ca[6] == cb[6]
-    iter_same = ta[5].sum(0) == tb[5].sum(0)
-    alpha_same = (ta[3] == tb[3]).all(0)
+    term_same = a["term"] == b["term"]
+    iter_same = a["iters"] == b["iters"]
+    alpha_same = (a["alpha"] == b["alpha"]).all(0)
     agree = term_same & iter_same & alpha_same
-    du = (ca[1] - cb[1]).abs().amax(0)[agree]
+    du = (a["u"] - b["u"]).abs().amax(0)[agree]
     max_abs_du = float(du.max()) if du.numel() else float("nan")
     return dict(
         term_differ=int((~term_same).sum()),
@@ -92,12 +292,19 @@ def _agreement(ca, ta, cb, tb):
         alpha_differ=int((~alpha_same).sum()),
         identical_fraction=float(agree.float().mean()),
         max_abs_du=max_abs_du,
-        rel_du=max_abs_du / float(cb[1][:, agree].abs().mean()),
+        rel_du=max_abs_du / float(b["u"][:, agree].abs().mean()),
     )
 
 
+def setup_problem(mpc, state, x, dtype):
+    dp = pt.default_single_params(dtype, x.device)
+    st = pt.MPCState(state.previous_solution.to(dtype), state.warm)
+    problem, Z0 = lanes._prepare(mpc, st, x.to(dtype), dp)
+    return problem, Z0
+
+
 def compare(mpc, state, x, nudge=False):
-    """Kernel (one launch, n_iter iterations) against the plain version
+    """Kernel 1 (one launch, n_iter iterations) against the plain version
     (n_iter calls of fused_iteration_reference) on the problem of one tick,
     both on the card in f32; n_iter launches of one iteration against the
     one launch; and both f32 results against the plain version in f64 (the
@@ -108,21 +315,16 @@ def compare(mpc, state, x, nudge=False):
     n_iter = config.max_iterations
 
     def setup(dtype):
-        dp = pt.default_single_params(dtype, x.device)
-        st = pt.MPCState(state.previous_solution.to(dtype), state.warm)
-        problem, Z0 = lanes._prepare(mpc, st, x.to(dtype), dp)
-        args = (problem.statics.fused, dp, problem.x_current,
-                problem.set_point, problem.u_prev)
+        problem, Z0 = setup_problem(mpc, state, x, dtype)
+        args = (problem.statics.fused, problem.dynamics_params,
+                problem.x_current, problem.set_point, problem.u_prev)
         return args, lanes._init_carry(Z0, config)
-
-    def plain(args, carry):
-        c, rows = _plain_solve(args, carry, n_iter)
-        return c, tuple(torch.stack([r[k] for r in rows]) for k in range(6))
 
     args, carry0 = setup(torch.float32)
     ck, tk = fused.fused_solve(*args, carry0, n_iter)
-    cp, tp = plain(args, carry0)
-    out = dict(batch=int(ck[6].numel()), **_agreement(ck, tk, cp, tp))
+    cp, tp = _plain_solve(args, carry0, n_iter)
+    out = dict(batch=int(ck[6].numel()),
+               **_agreement(path_of(ck, tk), path_of(cp, tp)))
 
     # n_iter x one-iteration launches must equal the single launch.
     c1, rows1 = carry0, []
@@ -140,9 +342,10 @@ def compare(mpc, state, x, nudge=False):
         ck[6].cpu().numpy(), minlength=5).tolist()
 
     # Accuracy against f64, over the instances all three agree on.
-    c64, t64 = plain(*setup(torch.float64))
+    c64, t64 = _plain_solve(*setup(torch.float64), n_iter)
     both = ((ck[6] == c64[6]) & (tk[5].sum(0) == t64[5].sum(0))
             & (cp[6] == c64[6]) & (tp[5].sum(0) == t64[5].sum(0)))
+
     def quantiles(c):
         e = (c[1].double() - c64[1]).abs().amax(0)[both]
         if not e.numel():
@@ -159,12 +362,13 @@ def compare(mpc, state, x, nudge=False):
     )
     if nudge:
         u1 = torch.nextafter(carry0[1], torch.full_like(carry0[1], math.inf))
-        cn, tn = plain(args, (carry0[0], u1) + carry0[2:])
-        out["plain_vs_nudged_plain"] = _agreement(cn, tn, cp, tp)
+        cn, tn = _plain_solve(args, (carry0[0], u1) + carry0[2:], n_iter)
+        out["plain_vs_nudged_plain"] = _agreement(path_of(cn, tn),
+                                                  path_of(cp, tp))
     return out
 
 
-def check_compare(tag, r, gate):
+def check_compare(tag, r, gate, card):
     """The agreement gates; every problem also needs the split launches
     identical to the single launch.
 
@@ -179,7 +383,7 @@ def check_compare(tag, r, gate):
       converged warm starts sit at f32 rounding noise: even the plain
       version disagrees with itself there.
     """
-    print(f"[{tag}] kernel vs plain: {json.dumps(r)}", flush=True)
+    print(f"[{tag}] kernel vs plain: {json.dumps(r)}  ({card})", flush=True)
     ident = r["identical_fraction"]
     if gate == "noise":
         ok = ident >= r["plain_vs_nudged_plain"]["identical_fraction"] - 0.02
@@ -191,141 +395,313 @@ def check_compare(tag, r, gate):
         raise SystemExit(f"[{tag}] kernel disagrees with its plain version")
 
 
-def time_cuda(fn, reps):
-    """Mean ms per call of ``fn`` over ``reps`` calls, by CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
+def kernel1_ops(st, args, carry, traces):
+    """Operations this solve's data needs (the kernel skips frozen
+    instances and stops its line search at the first accepted trial):
+    per active instance-iteration the plain iteration's base count, plus
+    per trial evaluated the count of one trial, both from the plain version
+    on this batch."""
+    B = carry[1].shape[-1]
+    n_ls = st.n_ls
+    one = dataclasses.replace(st, config=dataclasses.replace(
+        st.config, max_line_search_iterations=1))
+    t_all = count_ops(lambda: fused.fused_iteration_reference(*args, *carry))
+    t_one = count_ops(lambda: fused.fused_iteration_reference(
+        one, *args[1:], *carry))
+    per_trial = (t_all - t_one) / ((n_ls - 1) * B)
+    base = t_one / B - per_trial
+    applied = traces[5] != 0
+    alpha = traces[3]
+    k = torch.where(alpha > 0, 1.0 - torch.log2(alpha.double().clamp_min(
+        1e-30)), float(n_ls))
+    trials = float(k[applied].sum())
+    return base * float(applied.sum()) + per_trial * trials
 
 
-BATCH, TICKS = 4096, 300
+# ------------------------------------------------------------- closed loops
+def n_failed(res_list):
+    term = torch.cat([r.termination_states for r in res_list], 1)
+    failed = (term == 3) | (term == 4)  # MPC.failure_mask's solver codes
+    failed |= ~torch.isfinite(torch.cat(
+        [r.states for r in res_list], 1)).all(-1)  # ... and non-finite runs
+    return int(failed.sum())
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    return run(torch.device("cuda", 0))
 
+
+def run(dev) -> int:
+    """Every phase on ``dev``; raises ``SystemExit`` on the first failed
+    gate."""
     # ---------------------------------------------------------------- device
     card = _card()
     print(f"card: {card}", flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
 
     # ----------------------------------------------------------------- build
     t0 = time.perf_counter()
     path, log = _build.build_library()
     _build.load_library()
     build_s = time.perf_counter() - t0
-    print(f"build: {build_s:.1f} s -> {os.path.relpath(path)}", flush=True)
+    print(f"[build] {build_s:.1f} s -> {os.path.relpath(path)}", flush=True)
     for line in log.splitlines():
-        if "registers" in line or "stack frame" in line or "spill" in line:
+        if any(k in line for k in ("Compiling entry", "registers",
+                                   "stack frame", "spill")):
             print(f"  ptxas: {line.strip()}", flush=True)
 
-    # ------------------------------------------- kernel vs plain, cold start
     B = BATCH
     mpc = pt.make_mpc(pt.OptimizationParams(
         max_iterations=8, state_spacing=5, kkt_method="condensed"))
     cfg = mpc.nls_config
+    h, angle = mpc.params.control_dt, mpc.model.angle_indices
     dp = pt.default_single_params(torch.float32, dev)
     x0 = torch.as_tensor(bench_x0s(B), dtype=torch.float32, device=dev)
     cold = pt.MPCState(
         previous_solution=torch.zeros((B, mpc.spec.dim), device=dev),
         warm=torch.zeros((B,), dtype=torch.bool, device=dev),
     )
-    r_cold = compare(mpc, cold, x0)
-    check_compare("cold, tick 0", r_cold, "strict")
 
-    # ------------------------------------------------------------- main path
+    # ---------------------------------------- kernel 2 vs its plain version
+    S, sp = mpc.spec.num_states - 1, mpc.spec.spacing
+    R = S * B
+    check_segment_jac("random columns, seed 0",
+                      segment_inputs_random(R, sp, dev), h, angle, card)
+    problem_c, Z0_c = setup_problem(mpc, cold, x0, torch.float64)
+    seg_cold = segment_inputs_problem(problem_c, Z0_c)
+    seg_err = check_segment_jac("cold-start shooting problem", seg_cold, h,
+                                angle, card)
+    rest = segment_inputs_random(R, sp, dev)
+    rest_x = torch.zeros_like(rest[1])
+    rest_x[1] = -math.pi / 2
+    for dtype in (torch.float64, torch.float32):
+        outs = pk.segment_jac_batch_last(
+            rest[0].to(dtype), rest_x.to(dtype),
+            torch.zeros_like(rest[2], dtype=dtype), h, angle)
+        if not all(bool(torch.isfinite(o).all()) for o in outs):
+            raise SystemExit(f"[segment_jac] non-finite at rest ({dtype})")
+    print("[segment_jac] rest state: finite in f64 and f32", flush=True)
+
+    # ---------------------------------------- kernel 1 vs its plain version
+    r_cold = compare(mpc, cold, x0)
+    check_compare("cold, tick 0", r_cold, "strict", card)
+
+    # ------------------------------------------------------ path 1 (fused)
     # Two calls carrying (plant state, MPCState), as bench.py chains its
     # chunks: the state after tick 1 gives the first warm-start problem.
     torch.cuda.synchronize()
-    fused.fused_solve.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
-    res1 = pt.run_closed_loop_lanes(mpc, x0, dp, 1)
+    res1 = pt.run_closed_loop_lanes(mpc, x0, dp, 1, fused=True)
     res = pt.run_closed_loop_lanes(mpc, res1.final_state, dp, TICKS - 1,
-                                   mpc_state=res1.final_mpc_state)
+                                   mpc_state=res1.final_mpc_state, fused=True)
     torch.cuda.synchronize()
     loop_s = time.perf_counter() - t0
-    launches = fused.fused_solve.launches
-    term = torch.cat([res1.termination_states, res.termination_states], 1)
-    failed = (term == 3) | (term == 4)  # MPC.failure_mask's solver codes
-    failed |= ~torch.isfinite(torch.cat(
-        [res1.states, res.states], 1)).all(-1)  # ... and non-finite runs
-    n_failed = int(failed.sum())
+    n1 = counts()
+    failed1 = n_failed([res1, res])
     upright = upright_fraction(res.final_state.cpu().numpy())
-    print(f"[main] {TICKS} ticks x batch {B}: {loop_s:.2f} s, "
-          f"{launches} kernel launches, n_failed {n_failed}, "
-          f"fraction_upright {upright:.4f}  ({card})", flush=True)
-    if launches < TICKS:
-        raise SystemExit("main path launched the kernel fewer times than "
-                         "it ran ticks")
-    if n_failed != 0 or upright < 0.99:
-        raise SystemExit("main path failed: n_failed or fraction_upright")
+    print(f"[path 1] fused=True, {TICKS} ticks x batch {B}: {loop_s:.2f} s, "
+          f"launches {n1}, n_failed {failed1}, fraction_upright "
+          f"{upright:.4f}  ({card})", flush=True)
+    if n1["fused_iteration"] != TICKS or n1["segment_jac"] != 0:
+        raise SystemExit("path 1 did not launch kernel 1 once per tick")
+    if failed1 != 0 or upright < 0.99:
+        raise SystemExit("path 1 failed: n_failed or fraction_upright")
     if not torch.isfinite(res.controls).all():
-        raise SystemExit("main path produced non-finite controls")
+        raise SystemExit("path 1 produced non-finite controls")
 
-    # ------------------------------------------ kernel vs plain, warm starts
-    r_warm = compare(mpc, res1.final_mpc_state,
-                     res1.final_state)
-    check_compare("warm, tick 1", r_warm, "strict")
-    r_end = compare(mpc, res.final_mpc_state,
-                    res.final_state, nudge=True)
-    check_compare(f"warm, tick {TICKS}", r_end, "noise")
+    # ---------------------------------------- kernel 1, warm-start problems
+    r_warm = compare(mpc, res1.final_mpc_state, res1.final_state)
+    check_compare("warm, tick 1", r_warm, "strict", card)
+    r_end = compare(mpc, res.final_mpc_state, res.final_state, nudge=True)
+    check_compare(f"warm, tick {TICKS}", r_end, "noise", card)
+
+    # ------------------------------------------- disturbed run on path 1
+    if upright_fraction(res.final_state.cpu().numpy()) != 1.0:
+        raise SystemExit("[disturbed] path 1 did not end with every pole "
+                         "upright")
+    dist = torch.zeros((B, TICKS_DISTURBED, 2, 2), device=dev)
+    dist[:, 10:20, 1, 0] = 4.0  # horizontal force at the pole mass (N)
+    t0 = time.perf_counter()
+    res_d = pt.run_closed_loop_lanes(
+        mpc, res.final_state, dp, TICKS_DISTURBED,
+        mpc_state=res.final_mpc_state, disturbances=dist, fused=True)
+    torch.cuda.synchronize()
+    dist_s = time.perf_counter() - t0
+    states = res_d.states.cpu().numpy()
+    shove = _upright_error(states[:, 10:36, 1]).max(1)
+    shown = float(np.mean(shove > 5e-3))
+    failed_d = n_failed([res_d])
+    up_d = upright_fraction(res_d.final_state.cpu().numpy())
+    finite_d = bool(np.isfinite(states).all())
+    print(f"[disturbed] {TICKS_DISTURBED} ticks x batch {B}, 4 N at the pole "
+          f"mass over ticks 10-19: {dist_s:.2f} s, n_failed {failed_d}, "
+          f"finite {finite_d}, shove visible (max |th - pi/2| over ticks "
+          f"10-35 > 5e-3) for {shown:.4f} (median peak "
+          f"{float(np.median(shove)):.4e} rad), fraction_upright at the end "
+          f"{up_d:.4f}  ({card})", flush=True)
+    if failed_d or not finite_d or shown < 0.99 or up_d < 0.99:
+        raise SystemExit("[disturbed] failed")
+
+    # ---------------------------------------------------- path 2 (XLA body)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res2 = pt.run_closed_loop_lanes(mpc, x0, dp, TICKS_PATH2, fused=False)
+    torch.cuda.synchronize()
+    loop2_s = time.perf_counter() - t0
+    n2 = counts()
+    failed2 = n_failed([res2])
+    upright2 = upright_fraction(res2.final_state.cpu().numpy())
+    print(f"[path 2] fused=False, {TICKS_PATH2} ticks x batch {B}: "
+          f"{loop2_s:.2f} s, launches {n2}, n_failed {failed2}, "
+          f"fraction_upright {upright2:.4f}  ({card})", flush=True)
+    if (n2["segment_jac"] != TICKS_PATH2 * cfg.max_iterations
+            or n2["fused_iteration"] != 0):
+        raise SystemExit("path 2 did not launch kernel 2 once per GN "
+                         "iteration")
+    if failed2 != 0 or upright2 < 0.99:
+        raise SystemExit("path 2 failed: n_failed or fraction_upright")
+    if not torch.isfinite(res2.controls).all():
+        raise SystemExit("path 2 produced non-finite controls")
+
+    # ------------------------------------------- path 2 against path 1
+    problem32, Z0_32 = setup_problem(mpc, cold, x0, torch.float32)
+    Za, oa = lanes._solve_lanes(problem32, Z0_32, cfg, fused=False)
+    Zb, ob = lanes._solve_lanes(problem32, Z0_32, cfg, fused=True)
+    cross = _agreement(path_of_outputs(Za, oa), path_of_outputs(Zb, ob))
+    Za2, _ = lanes._solve_lanes(problem32, Z0_32, cfg, fused=False)
+    torch.set_float32_matmul_precision("high")
+    try:
+        Zh, _ = lanes._solve_lanes(problem32, Z0_32, cfg, fused=False)
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    cross["deterministic"] = bool(torch.equal(Za2.u, Za.u))
+    cross["u_identical_under_high_precision_setting"] = bool(
+        torch.equal(Zh.u, Za.u))
+    print(f"[cross] path 2 vs path 1, cold start, batch {B}, f32: "
+          f"{json.dumps(cross)}  ({card})", flush=True)
+    if not (cross["identical_fraction"] >= 0.999 and cross["rel_du"] <= 1e-3
+            and cross["u_identical_under_high_precision_setting"]):
+        raise SystemExit("[cross] path 2 disagrees with path 1")
 
     # --------------------------------------------------------------- timings
-    tick_ms = []
-    x, mst = res.final_state, res.final_mpc_state
-    for _ in range(20):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        r1 = pt.run_closed_loop_lanes(mpc, x, dp, 1, mpc_state=mst)
-        torch.cuda.synchronize()
-        tick_ms.append((time.perf_counter() - t0) * 1e3)
-        x, mst = r1.final_state, r1.final_mpc_state
-    med_tick = float(np.median(tick_ms))
+    def median_tick(fused_flag, x, mst, n=20):
+        ms = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r1 = pt.run_closed_loop_lanes(mpc, x, dp, 1, mpc_state=mst,
+                                          fused=fused_flag)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            x, mst = r1.final_state, r1.final_mpc_state
+        return float(np.median(ms))
+
+    med_tick = median_tick(True, res.final_state, res.final_mpc_state)
+    med_tick2 = median_tick(False, res2.final_state, res2.final_mpc_state)
+    for name, flag, r in (("path 1", True, res), ("path 2", False, res2)):
+        prof = profile_ticks(mpc, dp, r.final_state, r.final_mpc_state, flag)
+        print(f"[profile] {name}, one warm tick under torch.profiler: "
+              f"{json.dumps(prof)}  ({card})", flush=True)
+
+    # Kernel 1 on the warm problem after the last tick of path 1.
     problem_w, Z0_w = lanes._prepare(mpc, res.final_mpc_state,
                                      res.final_state, dp)
     wargs = (problem_w.statics.fused, dp, problem_w.x_current,
              problem_w.set_point, problem_w.u_prev)
     carry_w = lanes._init_carry(Z0_w, cfg)
     kern_ms = time_cuda(
-        lambda: fused.fused_solve(*wargs, carry_w, cfg.max_iterations),
-        20)
+        lambda: fused.fused_solve(*wargs, carry_w, cfg.max_iterations), 20)
+    plain_ms = time_cuda(
+        lambda: _plain_solve(wargs, carry_w, cfg.max_iterations), 1)
+    _, io_c, io_t, io = fused.kernel_io(*wargs, *carry_w, cfg.max_iterations)
+    k1_bytes = sum(t.numel() * t.element_size() for t in io.values())
+    del io_c, io
+    c_w, t_w = fused.fused_solve(*wargs, carry_w, cfg.max_iterations)
+    k1_ops = kernel1_ops(problem_w.statics.fused, wargs, carry_w, t_w)
+    k1_bound, k1_by = bound(k1_bytes, k1_ops)
 
-    def plain_solve():
-        c = carry_w
-        for _ in range(cfg.max_iterations):
-            c = fused.fused_iteration_reference(*wargs, *c)[:8]
+    # Kernel 2 on the cold-start shooting problem, f32.
+    seg32 = tuple(t.float() for t in seg_cold)
+    k2_ms = time_cuda(lambda: pk.segment_jac_batch_last(*seg32, h, angle), 50)
+    k2_plain_ms = time_cuda(
+        lambda: pk.segment_jac_batch_last_reference(*seg32, h, angle), 3)
+    outs = pk.segment_jac_batch_last(*seg32, h, angle)
+    k2_bytes = sum(t.numel() * t.element_size() for t in seg32 + outs)
+    k2_ops = count_ops(
+        lambda: pk.segment_jac_batch_last_reference(*seg32, h, angle))
+    k2_bound, k2_by = bound(k2_bytes, k2_ops)
 
-    plain_ms = time_cuda(plain_solve, 1)
-    print(f"[timing] solves/s {B * TICKS / loop_s:.1f} "
-          f"(main path, {TICKS} ticks); ms/tick mean "
-          f"{loop_s / TICKS * 1e3:.2f}, median {med_tick:.2f} "
-          f"(20 single ticks); kernel {kern_ms:.3f} ms/solve "
-          f"(8 iterations, 1 launch), plain version {plain_ms:.3f} "
-          f"ms/solve; kernel share of the median tick "
-          f"{kern_ms / med_tick:.4f}, glue {1 - kern_ms / med_tick:.4f}  "
-          f"({card})", flush=True)
+    # Path 2's split, on the warm problem after its last tick.
+    problem2, Z02 = lanes._prepare(mpc, res2.final_mpc_state,
+                                   res2.final_state, dp)
+    lam = torch.full((B,), cfg.lambda_initial, device=dev)
+    n_ls = cfg.max_line_search_iterations
+    with fused.full_f32_matmul():
+        step_ms = time_host(lambda: problem2.condensed_step(Z02, lam), 5)
+        dZ = problem2.condensed_step(Z02, lam)[0]
+        trials = problem2.tiled(n_ls)
+        alphas = torch.tensor([0.5 ** i for i in range(n_ls)], device=dev)
+        rep = lambda a: lanes._fold_lanes(a, n_ls, B)  # noqa: E731
+        Za_t = trials.retract(
+            lanes._Z(rep(Z02.xs), rep(Z02.u)), lanes._Z(rep(dZ.xs),
+                                                       rep(dZ.u)),
+            alphas[:, None].expand(n_ls, B).reshape(-1))
+        trial_ms = time_host(lambda: trials.evaluate(Za_t), 5)
+    n_it = cfg.max_iterations
+    print(f"[timing] path 1: solves/s {B * TICKS / loop_s:.1f} ({TICKS} "
+          f"ticks); ms/tick mean {loop_s / TICKS * 1e3:.2f}, median "
+          f"{med_tick:.2f} (20 single ticks); kernel 1 {kern_ms:.3f} "
+          f"ms/solve (8 iterations, 1 launch; bound {k1_bound:.4f} ms by "
+          f"{k1_by}: {k1_bytes} B, {k1_ops:.4e} ops), plain version "
+          f"{plain_ms:.3f} ms/solve; launches per tick "
+          f"{n1['fused_iteration'] / TICKS:.0f}; kernel share of the median "
+          f"tick {kern_ms / med_tick:.4f}  ({card})", flush=True)
+    print(f"[timing] path 2: solves/s {B * TICKS_PATH2 / loop2_s:.1f} "
+          f"({TICKS_PATH2} ticks); ms/tick mean "
+          f"{loop2_s / TICKS_PATH2 * 1e3:.2f}, median {med_tick2:.2f} (20 "
+          f"single ticks); kernel 2 {k2_ms:.4f} ms/launch (R={R}; bound "
+          f"{k2_bound:.4f} ms by {k2_by}: {k2_bytes} B, {k2_ops:.4e} ops), "
+          f"plain version {k2_plain_ms:.3f} ms; launches per tick "
+          f"{n2['segment_jac'] / TICKS_PATH2:.0f}  ({card})", flush=True)
+    print(f"[timing] path 2 split per tick (x{n_it} iterations): kernel 2 "
+          f"{n_it * k2_ms:.3f} ms, rest of condensed_step (eager) "
+          f"{n_it * (step_ms - k2_ms):.2f} ms, trial evaluation (5 x "
+          f"{B} folded) {n_it * trial_ms:.2f} ms, everything else "
+          f"{med_tick2 - n_it * (step_ms + trial_ms):.2f} ms of the "
+          f"{med_tick2:.2f} ms median tick  ({card})", flush=True)
 
-    print(json.dumps({"kernels": [{
-        "name": "fused_iteration",
-        "route": "cuda",
-        "source": "cartpole_tpu_torch/csrc/fused_iteration.cu",
-        "replaces": "cartpole_tpu/ops/fused.py:938",
-        "launches": launches,
-        "max_abs_err": max(r_cold["max_abs_du"], r_warm["max_abs_du"]),
-        "ms": kern_ms,
-        "plain_ms": plain_ms,
-    }]}))
+    print(json.dumps({"kernels": [
+        {
+            "name": "fused_iteration",
+            "route": "cuda",
+            "source": "cartpole_tpu_torch/csrc/fused_iteration.cu",
+            "replaces": "cartpole_tpu/ops/fused.py:938",
+            "launches": n1["fused_iteration"],
+            "max_abs_err": max(r_cold["max_abs_du"], r_warm["max_abs_du"]),
+            "ms": kern_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": k1_bound,
+            "bound_by": k1_by,
+            "library_ms": None,
+        },
+        {
+            "name": "segment_jac",
+            "route": "cuda",
+            "source": "cartpole_tpu_torch/csrc/segment_jac.cu",
+            "replaces": "cartpole_tpu/ops/pallas_kernels.py:189",
+            "launches": n2["segment_jac"],
+            "max_abs_err": seg_err,
+            "ms": k2_ms,
+            "plain_ms": k2_plain_ms,
+            "bound_ms": k2_bound,
+            "bound_by": k2_by,
+            "library_ms": None,
+        },
+    ]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,9 @@
 """The port's closed loop against the JAX package's, tick for tick.
 
-A 10-tick ``run_closed_loop_lanes`` of the port (fused solve through the
-plain version on CPU, lanes plant substeps, auto-reset) against the jitted
-reference ``cartpole_tpu.mpc.lanes.run_closed_loop_lanes`` in f64 at a tiny
-size: states and controls to atol 1e-8, termination codes and iteration
+A 10-tick ``run_closed_loop_lanes(..., fused=True)`` of the port (fused
+solve through the plain version on CPU, lanes plant substeps, auto-reset)
+against the jitted reference ``cartpole_tpu.mpc.lanes.run_closed_loop_lanes``
+in f64 at a tiny size: states and controls to atol 1e-8, termination codes and iteration
 counts equal. The reference program compiles once per module.
 """
 
@@ -47,8 +47,9 @@ def runs():
     mpc = pt.make_mpc(pt.OptimizationParams(**KW))
     out = pt.run_closed_loop_lanes(
         mpc, torch.as_tensor(x0),
-        params_from_numpy({k: np.asarray(v) for k, v in dp.as_dict().items()}),
-        TICKS)
+        params_from_numpy({k: np.asarray(v) for k, v in dp.as_dict().items()},
+                          device="cpu"),
+        TICKS, fused=True)
     return ref, out
 
 
@@ -94,7 +95,8 @@ def test_plant_substeps_match_reference():
     for dt in (0.01, 0.0125):
         ref = ref_sim(dp, jnp.asarray(x), dt, jnp.asarray(u))
         out = pt.simulator_step_lanes(
-            pt.default_single_params(torch.float64), torch.as_tensor(x), dt,
+            pt.default_single_params(torch.float64, device="cpu"),
+            torch.as_tensor(x), dt,
             torch.as_tensor(u))
         np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-12,
                                    atol=1e-12)

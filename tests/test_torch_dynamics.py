@@ -93,7 +93,7 @@ def test_dynamics_jac_core_matches_reference(per_instance):
 def test_model_wrappers_use_field_order():
     model = get_model("single")
     x, u = _states(seed=6)
-    dp = default_single_params(torch.float64)
+    dp = default_single_params(torch.float64, device="cpu")
     xr = tuple(torch.as_tensor(r) for r in x)
     out = model.dynamics_core(dp, xr, torch.as_tensor(u))
     ref = ref_gen.single_dynamics_core(
@@ -116,3 +116,43 @@ def test_generated_files_are_current():
     assert header == generate.generate_cuda_header(model)
     # Precise transcendentals only: no fast-math intrinsics.
     assert "__sinf(" not in header and "__cosf(" not in header
+
+
+@pytest.mark.parametrize("forces", ["none", "base", "mass", "both"])
+@pytest.mark.parametrize("per_instance", [False, True])
+def test_packed_dynamics_matches_reference(forces, per_instance):
+    """``models/single.py::single_cartpole_dynamics`` (the hand-derived
+    closed form the disturbed plant runs) against the reference's, with
+    external forces at the base and at the pole mass."""
+    import dataclasses
+
+    from cartpole_tpu.models.params import (
+        SingleCartPoleParams as RefSingleParams)
+    from cartpole_tpu.models.single import (
+        single_cartpole_dynamics as ref_dyn)
+    from cartpole_tpu_torch.models.params import SingleCartPoleParams
+    from cartpole_tpu_torch.models.single import single_cartpole_dynamics
+
+    x, u = _states(seed=7)
+    p = _per_instance_params(64) if per_instance else PARAMS
+    names = [f.name for f in dataclasses.fields(SingleCartPoleParams)]
+    dp = SingleCartPoleParams(**{
+        k: torch.as_tensor(v, dtype=torch.float64) for k, v in zip(names, p)})
+    dp_r = RefSingleParams(**{k: jnp.asarray(v) for k, v in zip(names, p)})
+    rng = np.random.RandomState(8)
+    fb = rng.uniform(-5.0, 5.0, (2, 64)) if forces in ("base", "both") \
+        else None
+    fm = rng.uniform(-5.0, 5.0, (2, 64)) if forces in ("mass", "both") \
+        else None
+
+    def t(a, conv):
+        return None if a is None else conv(a)
+
+    out = single_cartpole_dynamics(dp, torch.as_tensor(x), torch.as_tensor(u),
+                                   t(fb, torch.as_tensor),
+                                   t(fm, torch.as_tensor))
+    ref = ref_dyn(dp_r, jnp.asarray(x), jnp.asarray(u), t(fb, jnp.asarray),
+                  t(fm, jnp.asarray))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-12,
+                               atol=1e-12)
+    assert get_model("single").dynamics is single_cartpole_dynamics

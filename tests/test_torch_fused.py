@@ -1,8 +1,8 @@
 """The port's fused step against the JAX package's lanes step.
 
-``cartpole_tpu_torch.step_lanes`` runs the whole damped-GN solve through
-``ops/fused.py::fused_solve``, which on CPU tensors loops the plain version
-``fused_iteration_reference``. It is held against the jitted reference
+``cartpole_tpu_torch.step_lanes(..., fused=True)`` runs the whole damped-GN
+solve through ``ops/fused.py::fused_solve``, which on CPU tensors loops the
+plain version ``fused_iteration_reference``. It is held against the jitted reference
 ``cartpole_tpu.mpc.lanes.step_lanes`` (the XLA lanes body, which
 ``tests/test_fused.py`` pins to the reference's fused body) in f64 at a tiny
 size, with the tolerances of ``tests/test_fused.py:69-98``: u atol 1e-8,
@@ -60,8 +60,9 @@ def _np_params(dp):
 def _port_step(kw, dp_np, state_np, x0):
     mpc = pt.make_mpc(pt.OptimizationParams(**kw))
     out, _ = pt.step_lanes(
-        mpc, mpc_state_from_numpy(*state_np), torch.as_tensor(np.array(x0)),
-        params_from_numpy(dp_np), 0.0)
+        mpc, mpc_state_from_numpy(*state_np, device="cpu"),
+        torch.as_tensor(np.array(x0)), params_from_numpy(dp_np, device="cpu"),
+        0.0, fused=True)
     return out
 
 
@@ -166,8 +167,13 @@ def test_cases_cover_several_outcomes(cases):
 
 def test_port_never_imports_jax():
     code = ("import sys, cartpole_tpu_torch, cartpole_tpu_torch.ops.fused, "
-            "cartpole_tpu_torch.ops._build, cartpole_tpu_torch.convert; "
-            "assert 'jax' not in sys.modules, 'jax imported'")
+            "cartpole_tpu_torch.ops._build, cartpole_tpu_torch.convert, "
+            "cartpole_tpu_torch.ops.pallas_kernels, "
+            "cartpole_tpu_torch.ops.lanes, cartpole_tpu_torch.mpc.lanes, "
+            "cartpole_tpu_torch.models.single; "
+            "assert 'jax' not in sys.modules, 'jax imported'; "
+            "assert not any(m.split('.')[0] == 'cartpole_tpu' "
+            "for m in sys.modules), 'cartpole_tpu imported'")
     env = dict(os.environ)
     env["PYTHONPATH"] = os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))
@@ -177,7 +183,7 @@ def test_port_never_imports_jax():
 
 def _small_problem():
     mpc = pt.make_mpc(pt.OptimizationParams(**KW))
-    dp = pt.default_single_params(torch.float64)
+    dp = pt.default_single_params(torch.float64, device="cpu")
     st = pt.MPCState(torch.zeros((B, mpc.spec.dim), dtype=torch.float64),
                      torch.zeros((B,), dtype=torch.bool))
     problem, Z0 = _prepare(mpc, st, torch.as_tensor(x0_batch()), dp)
@@ -212,22 +218,38 @@ def test_kernel_guards_raise():
     st = pt.MPCState(torch.zeros((B, big.spec.dim)),
                      torch.zeros((B,), dtype=torch.bool))
     problem, _ = _prepare(big, st, torch.zeros((B, 4)),
-                          pt.default_single_params())
+                          pt.default_single_params(device="cpu"))
     with pytest.raises(ValueError, match="limits"):
         fused.check_sizes(problem.statics.fused)
 
 
-def test_unported_options_raise():
-    mpc = pt.make_mpc(pt.OptimizationParams(**KW))
-    dp = pt.default_single_params(torch.float64)
+def test_fused_raises_where_the_reference_raises():
+    """``fused=True`` with ``rebase_equalities=True`` and hard terminal
+    equalities raises the reference's ``ValueError`` (mpc/lanes.py:702-708)
+    instead of solving without the re-basing; so do dynamics params that
+    are neither 0-d nor ``(B,)``."""
+    from cartpole_tpu.mpc.lanes import step_lanes as ref_step
+
     x0 = torch.as_tensor(x0_batch())
+    kw = dict(KW, rebase_equalities=True)
+    mpc = pt.make_mpc(pt.OptimizationParams(**kw))
     st = pt.MPCState(torch.zeros((B, mpc.spec.dim), dtype=torch.float64),
                      torch.zeros((B,), dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.step_lanes(mpc, st, x0, dp, fused=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.run_closed_loop_lanes(mpc, x0, dp, 1,
-                                 disturbances=np.zeros((B, 1, 2, 2)))
+    dp = pt.default_single_params(torch.float64, device="cpu")
+    with pytest.raises(ValueError) as port_err:
+        pt.step_lanes(mpc, st, x0, dp, fused=True)
+    mpc_r = ref_make_mpc(RefParams(**kw))
+    st_r = RefState(previous_solution=jnp.zeros((B, mpc_r.spec.dim)),
+                    warm=jnp.zeros((B,), bool))
+    with pytest.raises(ValueError) as ref_err:
+        ref_step(mpc_r, st_r, jnp.asarray(x0.numpy()),
+                 ref_default_params(jnp.float64), fused=True)
+    assert str(port_err.value) == str(ref_err.value)
+    bad = dataclasses.replace(dp, m_1=torch.full((1,), 0.1,
+                                                 dtype=torch.float64))
+    mpc = pt.make_mpc(pt.OptimizationParams(**KW))
+    with pytest.raises(ValueError, match="not covered by the fused kernel"):
+        pt.step_lanes(mpc, st, x0, bad, fused=True)
 
 
 @pytest.mark.parametrize("alpha", [0.5, "per_instance"])
@@ -252,7 +274,7 @@ def test_lanes_problem_evaluate_and_retract(alpha):
     a = 0.5 if alpha == 0.5 else rng.uniform(0.0, 1.0, B)
     t = torch.as_tensor
     prob = _LanesProblem(mpc.spec, t(xc), t(spt), t(up),
-                         pt.default_single_params(torch.float64),
+                         pt.default_single_params(torch.float64, "cpu"),
                          _lanes_statics(mpc, torch.float64, t(xc).device))
     ref = RefProblem(mpc_r.spec, jnp.asarray(xc), jnp.asarray(spt),
                      jnp.asarray(up), ref_default_params(jnp.float64))

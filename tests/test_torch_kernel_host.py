@@ -60,7 +60,7 @@ def _x0(seed):
 def _problem(case):
     """(fused_solve args, initial carry) of one tiny f64 problem."""
     kw = dict(window_length=10, state_spacing=2, max_iterations=8)
-    dp = pt.default_single_params(torch.float64)
+    dp = pt.default_single_params(torch.float64, device="cpu")
     if case == "bench_window":
         kw.update(window_length=40, state_spacing=5)
     if case == "per_instance_params":
@@ -76,7 +76,7 @@ def _problem(case):
     st = pt.MPCState(torch.zeros((B, mpc.spec.dim), dtype=torch.float64),
                      torch.zeros((B,), dtype=torch.bool))
     if case == "warm":
-        res = pt.run_closed_loop_lanes(mpc, x0, dp, 2)
+        res = pt.run_closed_loop_lanes(mpc, x0, dp, 2, fused=True)
         x0, st = res.final_state, res.final_mpc_state
     problem, Z0 = _prepare(mpc, st, x0, dp, 0.1)
     args = (problem.statics.fused, dp, problem.x_current, problem.set_point,

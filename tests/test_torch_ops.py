@@ -40,7 +40,8 @@ def _rows(seed, m=32):
 
 
 def _fns():
-    dp, dp_r = default_single_params(torch.float64), ref_params(jnp.float64)
+    dp = default_single_params(torch.float64, device="cpu")
+    dp_r = ref_params(jnp.float64)
     return (
         lambda xr, u: SINGLE_CARTPOLE.dynamics_core(dp, xr, u),
         lambda xr, u: REF_MODEL.dynamics_core(dp_r, xr, u),
@@ -166,3 +167,64 @@ def test_problem_statics_match_reference():
 
 def dataclass_values(t):
     return (t.coord, t.target, t.weight, t.is_angle, t.is_setpoint)
+
+
+def _packed_fns(per_instance=False):
+    """Packed dynamics of both packages, with per-instance (m_1, l_1) when
+    asked."""
+    import dataclasses
+
+    dp = default_single_params(torch.float64, device="cpu")
+    dp_r = ref_params(jnp.float64)
+    if per_instance:
+        rng = np.random.RandomState(12)
+        m1, l1 = rng.uniform(0.08, 0.14, 32), rng.uniform(0.2, 0.3, 32)
+        dp = dataclasses.replace(dp, m_1=torch.as_tensor(m1),
+                                 l_1=torch.as_tensor(l1))
+        dp_r = dataclasses.replace(dp_r, m_1=jnp.asarray(m1),
+                                   l_1=jnp.asarray(l1))
+    return (lambda x, u: SINGLE_CARTPOLE.dynamics(dp, x, u),
+            lambda x, u: REF_MODEL.dynamics(dp_r, x, u))
+
+
+def test_packed_matrix_ops_match_reference():
+    rng = np.random.RandomState(13)
+    A, Bm = rng.normal(size=(4, 4, 32)), rng.normal(size=(4, 4, 32))
+    v = rng.normal(size=(4, 32))
+    t = torch.as_tensor
+    np.testing.assert_allclose(lanes.bmat(t(A), t(Bm)).numpy(),
+                               _np(ref_lanes.bmat(jnp.asarray(A),
+                                                  jnp.asarray(Bm))), **TOL)
+    np.testing.assert_allclose(lanes.bmv(t(A), t(v)).numpy(),
+                               _np(ref_lanes.bmv(jnp.asarray(A),
+                                                 jnp.asarray(v))), **TOL)
+    np.testing.assert_array_equal(
+        lanes.beye(4, torch.float64).numpy(),
+        _np(ref_lanes.beye(4, jnp.float64)))
+    x = v * 4.0
+    np.testing.assert_array_equal(
+        lanes.wrap_angles_lanes(t(x), ANGLE).numpy(),
+        _np(ref_lanes.wrap_angles_lanes(jnp.asarray(x), ANGLE)))
+
+
+@pytest.mark.parametrize("per_instance", [False, True])
+def test_rk4_step_lanes_matches_reference(per_instance):
+    f, f_r = _packed_fns(per_instance)
+    x = _rows(14)
+    u = np.random.RandomState(15).uniform(-30.0, 30.0, 32)
+    out = lanes.rk4_step_lanes(f, torch.as_tensor(x), torch.as_tensor(u), H)
+    ref = ref_lanes.rk4_step_lanes(f_r, jnp.asarray(x), jnp.asarray(u), H)
+    np.testing.assert_allclose(out.numpy(), _np(ref), **TOL)
+
+
+def test_segment_rollout_with_jac_scan_matches_reference():
+    _, _, fj, fj_r = _fns()
+    x = _rows(16)
+    us = np.random.RandomState(17).uniform(-30.0, 30.0, (5, 32))
+    out = lanes.segment_rollout_with_jac_scan(
+        fj, tuple(torch.as_tensor(x)), torch.as_tensor(us), H, ANGLE)
+    ref = ref_lanes.segment_rollout_with_jac_scan(
+        fj_r, tuple(jnp.asarray(x)), jnp.asarray(us), H, ANGLE)
+    for a, b in zip(out, ref):
+        assert tuple(a.shape) == b.shape
+        np.testing.assert_allclose(a.numpy(), _np(b), **TOL)
