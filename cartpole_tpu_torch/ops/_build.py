@@ -18,7 +18,7 @@ import os
 import shutil
 import subprocess
 
-__all__ = ["NVCC_FLAGS", "build_library", "load_library"]
+__all__ = ["NVCC_FLAGS", "build_library", "open_library", "load_library"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -60,11 +60,13 @@ def _run(procs):
     return "".join(logs)
 
 
-def build_library() -> tuple[str, str]:
-    """Compile the kernels if the library for the current sources is
-    missing. Returns ``(path, compiler output)``; the output is empty when
-    the library was already built."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def build_library(extra_flags=()) -> tuple[str, str]:
+    """Compile the kernels if the library for the current sources and
+    ``NVCC_FLAGS`` plus ``extra_flags`` is missing. Returns ``(path,
+    compiler output)``; the output is empty when the library was already
+    built."""
+    flags = [*NVCC_FLAGS, *extra_flags]
+    h = hashlib.sha256(" ".join(flags).encode())
     for src in _sources():
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
@@ -82,7 +84,7 @@ def build_library() -> tuple[str, str]:
             BUILD_DIR, f"{os.path.basename(src)[:-3]}.{tag}.o")
         objs.append(obj)
         procs.append((os.path.basename(src), subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+            [nvcc, *flags, "-c", "-o", obj, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     log = _run(procs)
     tmp = f"{path}.{tag}.tmp"
@@ -95,15 +97,17 @@ def build_library() -> tuple[str, str]:
     return path, log
 
 
-@functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """Build if needed, load, and declare the launchers' C signatures."""
+def open_library(path: str) -> ctypes.CDLL:
+    """Load a built library and declare the launchers' C signatures."""
     from .fused import _ArgsF, _Tensors
 
-    path, _ = build_library()
     lib = ctypes.CDLL(path)
     fn = lib.fused_iteration_launch_f32
-    fn.argtypes = [_Tensors, _ArgsF, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [_Tensors, _ArgsF, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.fused_iteration_occupancy_f32
+    fn.argtypes = [_ArgsF, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     for name, real in (("segment_jac_launch_f32", ctypes.c_float),
                        ("segment_jac_launch_f64", ctypes.c_double)):
@@ -112,3 +116,9 @@ def load_library() -> ctypes.CDLL:
                        + [real] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build the kernels with the default flags if needed, and load them."""
+    return open_library(build_library()[0])

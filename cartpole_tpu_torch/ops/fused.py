@@ -21,7 +21,9 @@ traces.
 * :func:`fused_solve` runs ``n_iter`` iterations. On CPU tensors it loops
   the plain version; on CUDA tensors it launches the kernel of
   ``csrc/fused_iteration.cu`` once (the reference's ``single_launch``
-  semantics) or raises — it never falls back.
+  semantics) or raises — it never falls back. The kernel gives each
+  instance :data:`LANES_PER_INSTANCE` lanes of a warp and a workspace in
+  shared memory, :data:`INSTANCES_PER_BLOCK` instances to a block.
 """
 
 from __future__ import annotations
@@ -43,8 +45,20 @@ from .solver import NLSConfig, NLSTerminationState
 __all__ = ["FusedStatics", "make_fused_statics", "fused_iteration_reference",
            "fused_solve", "fused_supported", "full_f32_matmul"]
 
-#: Compile-time maxima of the kernel (csrc/fused_iteration.cuh).
+#: The range the kernel is built and tested for: window, shooting states,
+#: terminal rows (a compile-time size of csrc/fused_iteration.cuh) and
+#: line-search trials.
 KMAX, NMAX, ALLMAX, LSMAX = 64, 17, 4, 8
+#: Lanes per instance, as compiled (``FUSED_LANES`` of
+#: csrc/fused_iteration.cu), and instances per block; chosen on the card
+#: (PERF.md, kernel 1).
+LANES_PER_INSTANCE = 16
+INSTANCES_PER_BLOCK = 4
+#: Shared memory a block may use on an H100, and the per-instance scalars
+#: at the head of a workspace (``fused::N_SCALARS``).
+SMEM_BLOCK_MAX = 232448
+N_SCALARS = 22
+_SD, _NP = 4, 9
 
 
 @dataclasses.dataclass(frozen=True)
@@ -668,11 +682,53 @@ def kernel_args(st: FusedStatics, B: int, n_iter: int, double=False):
     return a
 
 
+def workspace_reals(st: FusedStatics, lanes: int = LANES_PER_INSTANCE) -> int:
+    """Reals of one instance's shared workspace: ``fused::make_layout`` of
+    csrc/fused_iteration.cuh. The KKT solve's buffers, what the adjoint
+    stage hands on, and the line-search trials share one region."""
+    K, N, S, n_u = st.K, st.N, st.S, st.n_u
+    n_all = st.n_tc + st.n_t
+    fixed = (N_SCALARS + _NP + _SD + _SD * N + K + S * _SD * _SD + K * _SD
+             + S * _SD + _SD + _SD * K + _SD + 10 * ALLMAX + ALLMAX * ALLMAX
+             + n_u + 5 * K + N * _SD)
+    solve = (n_all + 1) * K + n_all * K + K + n_all * (K + n_all) + 3 * K
+    post = n_u + S * _SD
+    P = min(max(1, lanes // S), st.n_ls)
+    trials = P * (N * _SD + K + S * _SD + n_u + 2)
+    return fixed + max(solve, post, trials)
+
+
+def statics_reals(st: FusedStatics) -> int:
+    """Reals of a block's statics in shared memory: Q at row stride K + 1,
+    and eigs (Juc is read from device memory)."""
+    return st.K * (st.K + 1) + st.K
+
+
+def block_shape(st: FusedStatics, itemsize: int = 4):
+    """``(instances per block, shared bytes per block)`` of a launch:
+    :data:`INSTANCES_PER_BLOCK`, fewer where their workspaces would not fit
+    in :data:`SMEM_BLOCK_MAX`."""
+    ws = workspace_reals(st) * itemsize
+    statics = statics_reals(st) * itemsize
+    w = max(1, min(INSTANCES_PER_BLOCK, (SMEM_BLOCK_MAX - statics) // ws))
+    return w, statics + w * ws
+
+
 def check_sizes(st: FusedStatics):
-    """Raise on a configuration beyond the kernel's compile-time maxima."""
+    """Raise where one instance's shared workspace beside the block's
+    statics would not fit in a block, and on a configuration beyond the
+    kernel's tested range."""
     n_all = st.n_tc + st.n_t
     if st.sd != 4:
         raise ValueError(f"fused kernel supports state_dim 4, got {st.sd}")
+    ws, statics = 4 * workspace_reals(st), 4 * statics_reals(st)
+    if statics + ws > SMEM_BLOCK_MAX:
+        raise ValueError(
+            f"fused kernel shared memory: the statics take {statics} B and "
+            f"one instance's workspace {ws} B, above the {SMEM_BLOCK_MAX} B "
+            f"a block may use (K={st.K}, N={st.N}, n_u={st.n_u}, "
+            f"n_all={n_all})"
+        )
     if not (st.K <= KMAX and st.N <= NMAX and n_all <= ALLMAX
             and st.n_ls <= LSMAX and st.n_u <= 2 * KMAX):
         raise ValueError(
@@ -690,9 +746,6 @@ def params_block(params, B, dtype, device):
                            (B,))
         for v in params.as_tuple()
     ]).contiguous()
-
-
-THREADS_PER_BLOCK = 32
 
 
 def kernel_io(st: FusedStatics, params, xc, spt, up, xs, u, lam, mu, merit,
@@ -738,7 +791,11 @@ def kernel_io(st: FusedStatics, params, xc, spt, up, xs, u, lam, mu, merit,
     return ptrs, carry, traces, tensors
 
 
-def _launch_cuda(st, params, xc, spt, up, carry, n_iter):
+def _launch_cuda(st, params, xc, spt, up, carry, n_iter, lib=None,
+                 lanes=LANES_PER_INSTANCE, instances=None):
+    """One launch of the kernel; ``lib``, ``lanes`` and ``instances`` name
+    another build of it (``ops/_build.build_library`` with
+    ``-DFUSED_LANES``) and another block size, as a layout sweep needs."""
     from ._build import load_library
 
     if carry[1].dtype != torch.float32:
@@ -746,18 +803,39 @@ def _launch_cuda(st, params, xc, spt, up, carry, n_iter):
     ptrs, carry_o, traces, keep = kernel_io(st, params, xc, spt, up,
                                             *carry, n_iter)
     dev = carry[1].device
-    lib = load_library()
+    lib = lib or load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = lib.fused_iteration_launch_f32(
-            ptrs, kernel_args(st, carry[1].shape[-1], n_iter),
-            THREADS_PER_BLOCK, stream)
+            ptrs, kernel_args(st, carry[1].shape[-1], n_iter), lanes,
+            instances or block_shape(st)[0], stream)
     del keep  # the launch is enqueued: stream order protects the inputs
     if rc != 0:
         raise RuntimeError(f"fused_iteration kernel launch failed: CUDA "
                            f"error {rc}")
     fused_solve.launches += 1
     return carry_o, traces
+
+
+def kernel_occupancy(st: FusedStatics, B: int, instances=None, lib=None):
+    """What a launch of the kernel at batch ``B`` gets on the current card,
+    as the CUDA runtime reports it: lanes per instance, workspace reals
+    per instance, instances and shared bytes per block, resident blocks
+    (and warps) per SM, registers and local (spill) bytes per thread."""
+    from ._build import load_library
+
+    check_sizes(st)
+    w = instances or block_shape(st)[0]
+    out = (ctypes.c_int * 6)()
+    rc = (lib or load_library()).fused_iteration_occupancy_f32(
+        kernel_args(st, B, 1), w, out)
+    if rc != 0:
+        raise RuntimeError(f"fused_iteration occupancy query failed: CUDA "
+                           f"error {rc}")
+    return dict(lanes=out[0], workspace_reals=out[1], instances_per_block=w,
+                smem_per_block=out[2], blocks_per_sm=out[3],
+                resident_warps_per_sm=out[3] * w * out[0] / 32,
+                registers=out[4], local_bytes=out[5])
 
 
 def fused_solve(st: FusedStatics, params, xc, spt, up, carry, n_iter: int):
@@ -768,8 +846,8 @@ def fused_solve(st: FusedStatics, params, xc, spt, up, carry, n_iter: int):
 
     CPU tensors run :func:`fused_iteration_reference` ``n_iter`` times. CUDA
     tensors launch the kernel once, which loops the iterations in each
-    thread; an f64 input, a size beyond the kernel's maxima or a missing
-    library raises. ``fused_solve.launches`` counts kernel launches.
+    instance's lanes; an f64 input, a size beyond the kernel's range or a
+    missing library raises. ``fused_solve.launches`` counts kernel launches.
     """
     if carry[1].device.type == "cuda":
         return _launch_cuda(st, params, xc, spt, up, carry, n_iter)

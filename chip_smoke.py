@@ -13,16 +13,19 @@ bench.py's swing-up initial states, seed 0):
   iteration, the rest eager torch (``TICKS_PATH2`` ticks).
 
 Phases, each fatal on failure: device; build (both kernels in one library,
-one nvcc per source in parallel); segment_jac (kernel 2 against its plain
-version, f64 and f32, on random columns and on the cold-start shooting
-problem); kernel 1 against its plain version (cold start); path 1; kernel 1
-against its plain version (warm starts after tick 1 and the last tick);
-disturbed (100 ticks of path 1 with a shove at the pole mass); path 2;
-cross (path 2 against path 1 on the cold-start problem, and path 2 under
+one nvcc per source in parallel; kernel 1's registers and spills);
+segment_jac (kernel 2 against its plain version, f64 and f32, on random
+columns and on the cold-start shooting problem); kernel 1 against its plain
+version (cold start, and a ragged batch of RAGGED instances that leaves the
+last block part full); path 1; kernel 1 against its plain version (warm
+starts after tick 1 and the last tick); disturbed (100 ticks of path 1 with
+a shove at the pole mass); path 2; cross (path 2 against path 1 on the
+cold-start problem, and path 2 under
 ``torch.set_float32_matmul_precision("high")``); timing and a profile of
-one tick of each path (device-busy share, kernel launches). Every kernel
-launch counter is set to 0 just before a path is driven and read just
-after. Prints the card's name and power limit beside every number, one JSON
+one tick of each path (device-busy share, kernel launches), with kernel 1's
+launch layout (instances and shared bytes per block, resident blocks per
+SM). Every kernel launch counter is set to 0 just before a path is driven
+and read just after. Prints the card's name and power limit beside every number, one JSON
 line describing the kernels, and as its last line ``{"ok": true, "device":
 {...}}``.
 
@@ -51,6 +54,8 @@ from cartpole_tpu_torch.ops import _build, fused
 from cartpole_tpu_torch.ops import pallas_kernels as pk
 
 BATCH, TICKS, TICKS_PATH2, TICKS_DISTURBED = 4096, 300, 300, 100
+#: A batch that is not a multiple of kernel 1's instances per block.
+RAGGED = 4093
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s off the
 #: tensor cores.
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
@@ -447,10 +452,19 @@ def run(dev) -> int:
     _build.load_library()
     build_s = time.perf_counter() - t0
     print(f"[build] {build_s:.1f} s -> {os.path.relpath(path)}", flush=True)
-    for line in log.splitlines():
+    lines = log.splitlines()
+    for line in lines:
         if any(k in line for k in ("Compiling entry", "registers",
                                    "stack frame", "spill")):
             print(f"  ptxas: {line.strip()}", flush=True)
+    for i, line in enumerate(lines):
+        if "Compiling entry" in line and "fused_iteration_kernel" in line:
+            regs = next(x for x in lines[i:] if "registers" in x)
+            spill = next(x for x in lines[i:] if "spill" in x)
+            print(f"[build] kernel 1 (fused_iteration, "
+                  f"{fused.LANES_PER_INSTANCE} lanes per instance): "
+                  f"{regs.split(':', 1)[1].strip()}; {spill.strip()}",
+                  flush=True)
 
     B = BATCH
     mpc = pt.make_mpc(pt.OptimizationParams(
@@ -487,6 +501,10 @@ def run(dev) -> int:
     # ---------------------------------------- kernel 1 vs its plain version
     r_cold = compare(mpc, cold, x0)
     check_compare("cold, tick 0", r_cold, "strict", card)
+    r_ragged = compare(mpc, pt.MPCState(cold.previous_solution[:RAGGED],
+                                        cold.warm[:RAGGED]), x0[:RAGGED])
+    check_compare(f"cold, tick 0, ragged batch {RAGGED}", r_ragged, "strict",
+                  card)
 
     # ------------------------------------------------------ path 1 (fused)
     # Two calls carrying (plant state, MPCState), as bench.py chains its
@@ -623,6 +641,7 @@ def run(dev) -> int:
     c_w, t_w = fused.fused_solve(*wargs, carry_w, cfg.max_iterations)
     k1_ops = kernel1_ops(problem_w.statics.fused, wargs, carry_w, t_w)
     k1_bound, k1_by = bound(k1_bytes, k1_ops)
+    occ = fused.kernel_occupancy(problem_w.statics.fused, B)
 
     # Kernel 2 on the cold-start shooting problem, f32.
     seg32 = tuple(t.float() for t in seg_cold)
@@ -660,6 +679,15 @@ def run(dev) -> int:
           f"{plain_ms:.3f} ms/solve; launches per tick "
           f"{n1['fused_iteration'] / TICKS:.0f}; kernel share of the median "
           f"tick {kern_ms / med_tick:.4f}  ({card})", flush=True)
+    print(f"[timing] kernel 1 layout: {occ['lanes']} lanes and "
+          f"{occ['workspace_reals'] * 4} B of workspace per instance, "
+          f"{occ['instances_per_block']} instances and "
+          f"{occ['smem_per_block']} B of shared memory per block, "
+          f"{occ['blocks_per_sm']} resident blocks "
+          f"({occ['resident_warps_per_sm']:.0f} warps) per SM, "
+          f"{occ['registers']} registers and {occ['local_bytes']} B of local "
+          f"memory per thread; {kern_ms:.3f} ms/solve against a bound of "
+          f"{k1_bound:.4f} ms  ({card})", flush=True)
     print(f"[timing] path 2: solves/s {B * TICKS_PATH2 / loop2_s:.1f} "
           f"({TICKS_PATH2} ticks); ms/tick mean "
           f"{loop2_s / TICKS_PATH2 * 1e3:.2f}, median {med_tick2:.2f} (20 "
@@ -681,7 +709,8 @@ def run(dev) -> int:
             "source": "cartpole_tpu_torch/csrc/fused_iteration.cu",
             "replaces": "cartpole_tpu/ops/fused.py:938",
             "launches": n1["fused_iteration"],
-            "max_abs_err": max(r_cold["max_abs_du"], r_warm["max_abs_du"]),
+            "max_abs_err": max(r_cold["max_abs_du"], r_ragged["max_abs_du"],
+                               r_warm["max_abs_du"]),
             "ms": kern_ms,
             "plain_ms": plain_ms,
             "bound_ms": k1_bound,

@@ -25,7 +25,7 @@ import cartpole_tpu_torch as pt
 from cartpole_tpu_torch.convert import params_from_numpy
 
 B, TICKS = 4, 10
-KW = dict(window_length=10, state_spacing=2, max_iterations=8,
+KW = dict(window_length=4, state_spacing=2, max_iterations=8,
           kkt_method="condensed")
 
 

@@ -66,39 +66,49 @@ def _port_step(kw, dp_np, state_np, x0):
     return out
 
 
+def _ref_params(per_instance):
+    """Dynamics params with per-instance ``(B,)`` mass and length: a (mass,
+    length) grid, or the defaults repeated."""
+    dp = ref_default_params(jnp.float64)
+    if per_instance:
+        grid = np.stack(np.meshgrid([0.08, 0.12], [0.2, 0.3]),
+                        -1).reshape(B, 2)
+    else:
+        grid = np.tile([float(dp.m_1), float(dp.l_1)], (B, 1))
+    return dataclasses.replace(dp, m_1=jnp.asarray(grid[:, 0]),
+                               l_1=jnp.asarray(grid[:, 1]))
+
+
 @pytest.fixture(scope="module")
 def cases():
-    """Reference and port outputs for each case, computed once."""
+    """Reference and port outputs for each case, computed once. One
+    reference program serves every case: u_limit 40, which binds in the line
+    search, and the params an argument with per-instance leaves."""
     out = {}
     sp = jnp.zeros((B,))
-
-    # u_limit 40 binds in the line search: a cold tick, then a warm one.
     kw40 = dict(KW, u_limit=40.0)
     mpc_r = ref_make_mpc(RefParams(**kw40))
-    dp = ref_default_params(jnp.float64)
-    step = jax.jit(lambda s, x: ref_step_lanes(mpc_r, s, x, dp, sp))
+    step = jax.jit(lambda s, x, d: ref_step_lanes(mpc_r, s, x, d, sp))
     st0 = RefState(previous_solution=jnp.zeros((B, mpc_r.spec.dim)),
                    warm=jnp.zeros((B,), bool))
-    x0 = x0_batch(1)
-    ref1, st1 = step(st0, jnp.asarray(x0))
-    x1 = np.asarray(ref1.predicted_states[:, 0, :])
-    ref2, _ = step(st1, jnp.asarray(x1))
     zeros = (np.zeros((B, mpc_r.spec.dim)), np.zeros(B, bool))
+
+    # A cold tick, then a warm one.
+    dp = _ref_params(False)
+    x0 = x0_batch(1)
+    ref1, st1 = step(st0, jnp.asarray(x0), dp)
+    x1 = np.asarray(ref1.predicted_states[:, 0, :])
+    ref2, _ = step(st1, jnp.asarray(x1), dp)
     out["cold_ulimit40"] = (ref1, _port_step(kw40, _np_params(dp), zeros, x0))
     warm = (np.asarray(st1.previous_solution), np.asarray(st1.warm))
     out["warm_ulimit40"] = (ref2, _port_step(kw40, _np_params(dp), warm, x1))
 
     # Per-instance (mass, length) grid.
-    mpc_r = ref_make_mpc(RefParams(**KW))
-    grid = np.stack(np.meshgrid([0.08, 0.12], [0.2, 0.3]), -1).reshape(B, 2)
-    dp = dataclasses.replace(ref_default_params(jnp.float64),
-                             m_1=jnp.asarray(grid[:, 0]),
-                             l_1=jnp.asarray(grid[:, 1]))
-    x0 = x0_batch(2)
-    ref, _ = jax.jit(lambda s, x: ref_step_lanes(mpc_r, s, x, dp, sp))(
-        st0, jnp.asarray(x0))
+    dp = _ref_params(True)
+    x0 = x0_batch(7)
+    ref, _ = step(st0, jnp.asarray(x0), dp)
     out["per_instance_params"] = (
-        ref, _port_step(KW, _np_params(dp), zeros, x0))
+        ref, _port_step(kw40, _np_params(dp), zeros, x0))
     return out
 
 
@@ -170,7 +180,8 @@ def test_port_never_imports_jax():
             "cartpole_tpu_torch.ops._build, cartpole_tpu_torch.convert, "
             "cartpole_tpu_torch.ops.pallas_kernels, "
             "cartpole_tpu_torch.ops.lanes, cartpole_tpu_torch.mpc.lanes, "
-            "cartpole_tpu_torch.models.single; "
+            "cartpole_tpu_torch.models.single, "
+            "cartpole_tpu_torch.tools.sweep_fused_layout; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m.split('.')[0] == 'cartpole_tpu' "
             "for m in sys.modules), 'cartpole_tpu imported'")

@@ -1,15 +1,18 @@
 """Host build of the fused kernel's body against its plain version.
 
 ``csrc/fused_iteration.cuh`` is plain C++ outside nvcc (``__host__`` and
-``__device__`` are defined away). ``csrc/host_check.cc`` loops its
-per-instance solve over the batch; it is compiled here with the system
-``g++`` for ``T=double`` and held against
+``__device__`` are defined away). ``csrc/host_check.cc`` runs it as the card
+does: blocks of ``INSTANCES_PER_BLOCK`` instances that stage their statics
+into a buffer laid out as shared memory, a ragged last block, and each
+instance's stages run lane by lane over ``LANES_PER_INSTANCE`` lanes. It is
+compiled here with the system ``g++`` for ``T=double`` and held against
 ``ops/fused.py::fused_iteration_reference`` in f64 at a tiny size, to 1e-9,
 with equal termination codes. Only the ``__global__`` wrapper of
 ``csrc/fused_iteration.cu`` is left to run first on the card.
 """
 
 import ctypes
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -27,9 +30,11 @@ from cartpole_tpu_torch.ops import fused
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "cartpole_tpu_torch", "csrc")
-B = 4
 CARRY = ("xs", "u", "lam", "mu", "merit", "done", "term", "fo")
 TRACES = ("cost", "violation", "lambda", "alpha", "first_order", "applied")
+NO_TERMINAL_ROWS = dict(b_x_final_cost_weight=0.0, th_final_cost_weight=0.0,
+                        b_x_dot_final_cost_weight=0.0,
+                        th_dot_final_cost_weight=0.0)
 
 
 @pytest.fixture(scope="module")
@@ -43,12 +48,17 @@ def host_lib(tmp_path_factory):
          os.path.join(CSRC, "host_check.cc")],
         check=True, timeout=300)
     lib = ctypes.CDLL(str(out))
-    lib.fused_iteration_host_f64.argtypes = [fused._Tensors, fused._ArgsD]
+    lib.fused_iteration_host_f64.argtypes = [fused._Tensors, fused._ArgsD,
+                                             ctypes.c_int, ctypes.c_int]
     lib.fused_iteration_host_f64.restype = ctypes.c_int
+    lib.fused_workspace_reals.argtypes = [ctypes.c_int] * 7
+    lib.fused_workspace_reals.restype = ctypes.c_int
+    lib.fused_statics_reals.argtypes = [ctypes.c_int]
+    lib.fused_statics_reals.restype = ctypes.c_int
     return lib
 
 
-def _x0(seed):
+def _x0(seed, B):
     rng = np.random.RandomState(seed)
     x0 = np.tile([0.0, np.pi / 2, 0.0, 0.0], (B, 1))
     x0[:, 0] += rng.uniform(-0.5, 0.5, B)
@@ -58,8 +68,15 @@ def _x0(seed):
 
 
 def _problem(case):
-    """(fused_solve args, initial carry) of one tiny f64 problem."""
+    """(fused_solve args, initial carry, config) of one tiny f64 problem.
+
+    ``ragged_batch`` leaves the last block of instances part full,
+    ``window_33`` has K beyond one pass of 32 lanes and not a multiple of
+    it, ``no_terminal_rows`` has n_all = 0 (the other cases have the
+    default four terminal rows), and ``frozen_at_start`` has two instances
+    done before the first iteration."""
     kw = dict(window_length=10, state_spacing=2, max_iterations=8)
+    B = 4
     dp = pt.default_single_params(torch.float64, device="cpu")
     if case == "bench_window":
         kw.update(window_length=40, state_spacing=5)
@@ -71,8 +88,14 @@ def _problem(case):
         })
     if case == "u_limit_40":
         kw.update(u_limit=40.0)
+    if case == "ragged_batch":
+        B = 2 * fused.INSTANCES_PER_BLOCK + 1
+    if case == "window_33":
+        kw.update(window_length=33, state_spacing=3)
+    if case == "no_terminal_rows":
+        kw.update(NO_TERMINAL_ROWS)
     mpc = pt.make_mpc(pt.OptimizationParams(**kw))
-    x0 = _x0(7)
+    x0 = _x0(7, B)
     st = pt.MPCState(torch.zeros((B, mpc.spec.dim), dtype=torch.float64),
                      torch.zeros((B,), dtype=torch.bool))
     if case == "warm":
@@ -81,19 +104,29 @@ def _problem(case):
     problem, Z0 = _prepare(mpc, st, x0, dp, 0.1)
     args = (problem.statics.fused, dp, problem.x_current, problem.set_point,
             problem.u_prev)
-    return args, _init_carry(Z0, mpc.nls_config), mpc.nls_config
+    carry = _init_carry(Z0, mpc.nls_config)
+    if case == "frozen_at_start":
+        done, term = carry[5].clone(), carry[6].clone()
+        done[1::2] = 1
+        term[1::2] = 2
+        carry = carry[:5] + (done, term) + carry[7:]
+    return args, carry, mpc.nls_config
 
 
-def _host_solve(lib, args, carry, n_iter):
+def _host_solve(lib, args, carry, n_iter, lanes=fused.LANES_PER_INSTANCE,
+                instances=fused.INSTANCES_PER_BLOCK):
     ptrs, c, tr, keep = fused.kernel_io(*args, *carry, n_iter)
+    B = carry[1].shape[-1]
     rc = lib.fused_iteration_host_f64(
-        ptrs, fused.kernel_args(args[0], B, n_iter, double=True))
+        ptrs, fused.kernel_args(args[0], B, n_iter, double=True), lanes,
+        instances)
     assert rc == 0
     del keep
     return c, tr
 
 
-CASES = ("cold", "warm", "per_instance_params", "u_limit_40", "bench_window")
+CASES = ("cold", "warm", "per_instance_params", "u_limit_40", "bench_window",
+         "ragged_batch", "window_33", "no_terminal_rows", "frozen_at_start")
 
 
 @pytest.fixture(scope="module")
@@ -103,13 +136,13 @@ def solves(host_lib):
         args, carry, cfg = _problem(case)
         n = cfg.max_iterations
         out[case] = (_host_solve(host_lib, args, carry, n),
-                     fused.fused_solve(*args, carry, n))
+                     fused.fused_solve(*args, carry, n), (args, carry, n))
     return out
 
 
 @pytest.mark.parametrize("case", CASES)
 def test_carry_matches_plain_version(solves, case):
-    (ck, _), (cp, _) = solves[case]
+    (ck, _), (cp, _), _ = solves[case]
     for name, a, b in zip(CARRY, ck, cp):
         if name in ("done", "term"):
             np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=name)
@@ -120,7 +153,7 @@ def test_carry_matches_plain_version(solves, case):
 
 @pytest.mark.parametrize("case", CASES)
 def test_traces_match_plain_version(solves, case):
-    (_, tk), (_, tp) = solves[case]
+    (_, tk), (_, tp), _ = solves[case]
     for name, a, b in zip(TRACES, tk, tp):
         a, b = a.numpy().astype(float), b.numpy().astype(float)
         np.testing.assert_array_equal(np.isnan(a), np.isnan(b), err_msg=name)
@@ -137,11 +170,25 @@ def test_cases_reach_early_termination(solves):
     assert applied.min() < 8 and applied.max() == 8
 
 
-def test_one_iteration_launches_equal_one_launch(host_lib):
-    args, carry, cfg = _problem("warm")
-    c_all, t_all = _host_solve(host_lib, args, carry, cfg.max_iterations)
+def test_cases_cover_the_shapes(solves):
+    """The new cases reach what they are named for: a ragged last block,
+    n_all = 0, K past one pass of 32 lanes, frozen instances."""
+    st = {c: solves[c][2][0][0] for c in CASES}
+    assert solves["ragged_batch"][2][1][1].shape[-1] % \
+        fused.INSTANCES_PER_BLOCK != 0
+    assert st["no_terminal_rows"].n_tc + st["no_terminal_rows"].n_t == 0
+    assert st["cold"].n_tc + st["cold"].n_t == 4
+    assert st["window_33"].K % 32 != 0 and st["window_33"].K > 32
+    applied = solves["frozen_at_start"][1][1][5].numpy()
+    assert (applied[:, 1::2] == 0).all() and (applied[0, 0::2] == 1).all()
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_one_iteration_launches_equal_one_launch(host_lib, solves, case):
+    args, carry, n_iter = solves[case][2]
+    c_all, t_all = solves[case][0]
     c, rows = carry, []
-    for _ in range(cfg.max_iterations):
+    for _ in range(n_iter):
         c, t = _host_solve(host_lib, args, c, 1)
         rows.append(t)
     for a, b in zip(c, c_all):
@@ -149,3 +196,49 @@ def test_one_iteration_launches_equal_one_launch(host_lib):
     for k in range(6):
         assert torch.equal(torch.cat([r[k] for r in rows]).nan_to_num(),
                            t_all[k].nan_to_num())
+
+
+@pytest.mark.parametrize("case", ["bench_window", "ragged_batch",
+                                  "no_terminal_rows"])
+def test_lane_counts_and_block_sizes_give_identical_results(host_lib, solves,
+                                                           case):
+    """Every output is computed whole by one lane, so 8, 16 or 32 lanes per
+    instance (and so 1 to 5 line-search trials at a time) and any number of
+    instances per block give the same bits."""
+    args, carry, n_iter = solves[case][2]
+    c_ref, t_ref = solves[case][0]
+    for lanes, instances in ((8, 1), (16, 3), (32, 2)):
+        c, t = _host_solve(host_lib, args, carry, n_iter, lanes, instances)
+        for a, b in zip(c + t, c_ref + t_ref):
+            assert torch.equal(a.nan_to_num(), b.nan_to_num())
+
+
+def test_workspace_layout_matches_the_kernel(host_lib, solves):
+    """``ops/fused.py``'s workspace and statics sizes, which size the
+    launch and ``check_sizes``, are the kernel's own."""
+    for case in CASES:
+        st = solves[case][2][0][0]
+        for lanes in (8, 16, 32):
+            assert fused.workspace_reals(st, lanes) == \
+                host_lib.fused_workspace_reals(st.K, st.N, st.S, st.n_u,
+                                               st.n_tc + st.n_t, st.n_ls,
+                                               lanes)
+        assert fused.statics_reals(st) == host_lib.fused_statics_reals(st.K)
+    st = solves["bench_window"][2][0][0]
+    assert fused.workspace_reals(st) * 4 < 8 * 1024
+    w, smem = fused.block_shape(st)
+    assert w == fused.INSTANCES_PER_BLOCK and smem <= fused.SMEM_BLOCK_MAX
+
+
+def test_check_sizes_raises_where_shared_memory_runs_out(solves):
+    """A window whose statics and one workspace exceed what a block may use
+    raises with the sizes, before the range check."""
+    st = solves["cold"][2][0][0]
+    big = dataclasses.replace(st, K=240, N=49, S=48, n_u=480)
+    ws, statics = 4 * fused.workspace_reals(big), 4 * fused.statics_reals(big)
+    assert statics + ws > fused.SMEM_BLOCK_MAX
+    with pytest.raises(ValueError, match=f"statics take {statics} B and one "
+                       f"instance's workspace {ws} B, above the "
+                       f"{fused.SMEM_BLOCK_MAX} B"):
+        fused.check_sizes(big)
+    fused.check_sizes(st)

@@ -61,11 +61,17 @@ def _np_params(dp):
     return {k: np.asarray(v) for k, v in dp.as_dict().items()}
 
 
-def _ref_params(per_instance):
+def _ref_params(per_instance, uniform=False):
+    """The default params; with ``per_instance`` a (mass, length) grid as
+    ``(B,)`` leaves, with ``uniform`` the defaults as such leaves."""
     dp = ref_default_params(jnp.float64)
-    if not per_instance:
+    if not (per_instance or uniform):
         return dp
-    grid = np.stack(np.meshgrid([0.08, 0.12], [0.2, 0.3]), -1).reshape(B, 2)
+    if per_instance:
+        grid = np.stack(np.meshgrid([0.08, 0.12], [0.2, 0.3]),
+                        -1).reshape(B, 2)
+    else:
+        grid = np.tile([float(dp.m_1), float(dp.l_1)], (B, 1))
     return dataclasses.replace(dp, m_1=jnp.asarray(grid[:, 0]),
                                l_1=jnp.asarray(grid[:, 1]))
 
@@ -82,30 +88,36 @@ def _port_step(kw, dp_np, state_np, x0, fused=False):
 @pytest.fixture(scope="module")
 def steps():
     """Reference and port ``fused=False`` outputs of each step case; one
-    reference program per configuration."""
+    reference program per configuration, the params its argument (the
+    u_limit-40 program serves the per-instance case too)."""
     out = {}
     sp = jnp.zeros((B,))
+    programs = {}
 
-    def run(name, kw, per_instance, x0, warm_name=None):
-        mpc_r = ref_make_mpc(RefParams(**kw))
-        dp = _ref_params(per_instance)
-        step = jax.jit(lambda s, x: ref_step_lanes(mpc_r, s, x, dp, sp))
+    def run(name, kw, dp, x0, warm_name=None):
+        key = tuple(sorted(kw.items()))
+        if key not in programs:
+            mpc_r = ref_make_mpc(RefParams(**kw))
+            programs[key] = (mpc_r, jax.jit(
+                lambda s, x, d: ref_step_lanes(mpc_r, s, x, d, sp)))
+        mpc_r, step = programs[key]
         st = RefState(previous_solution=jnp.zeros((B, mpc_r.spec.dim)),
                       warm=jnp.zeros((B,), bool))
         for case in (name, warm_name):
             if case is None:
                 break
-            ref, st2 = step(st, jnp.asarray(x0))
+            ref, st2 = step(st, jnp.asarray(x0), dp)
             state_np = (np.asarray(st.previous_solution), np.asarray(st.warm))
             out[case] = (ref, _port_step(kw, _np_params(dp), state_np, x0))
             st, x0 = st2, np.asarray(ref.predicted_states[:, 0, :])
 
     # u_limit 40 binds in the line search: a cold tick, then a warm one.
-    run("cold_ulimit40", dict(KW, u_limit=40.0), False, x0_batch(1),
+    kw40 = dict(KW, u_limit=40.0)
+    run("cold_ulimit40", kw40, _ref_params(False, uniform=True), x0_batch(1),
         "warm_ulimit40")
-    run("per_instance_params", KW, True, x0_batch(2))
-    run("rebase_equalities", dict(KW, rebase_equalities=True), False,
-        x0_batch(3))
+    run("per_instance_params", kw40, _ref_params(True), x0_batch(2))
+    run("rebase_equalities", dict(KW, rebase_equalities=True),
+        _ref_params(False), x0_batch(3))
     return out
 
 
@@ -200,6 +212,9 @@ def _disturbances():
 
 @pytest.fixture(scope="module")
 def loops():
+    """The port's loop without and with disturbances against one reference
+    program, the disturbances its argument: zero forces for the port's
+    undisturbed loop."""
     x0 = x0_batch(5)
     mpc_r = ref_make_mpc(RefParams(**KW))
     dp = ref_default_params(jnp.float64)
@@ -208,9 +223,8 @@ def loops():
     dp_t = params_from_numpy(_np_params(dp), device="cpu")
     out = {}
     for name, dist in (("plain", None), ("disturbed", _disturbances())):
-        ref = (jax.jit(lambda x: ref_run(mpc_r, x, dp, TICKS))(
-            jnp.asarray(x0)) if dist is None
-            else run(jnp.asarray(x0), jnp.asarray(dist)))
+        ref = run(jnp.asarray(x0), jnp.asarray(
+            np.zeros((B, TICKS, 2, 2)) if dist is None else dist))
         out[name] = (ref, pt.run_closed_loop_lanes(
             mpc, torch.as_tensor(x0), dp_t, TICKS, disturbances=dist))
     return out

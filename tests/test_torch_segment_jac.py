@@ -1,10 +1,12 @@
 """The segment-Jacobian kernel of the PyTorch port against the JAX package.
 
 ``cartpole_tpu_torch/ops/pallas_kernels.py::segment_jac_batch_last_reference``
-(the plain version) is held against the reference's Pallas kernel
-``cartpole_tpu/ops/pallas_kernels.py::segment_jac_batch_last`` run in
-interpret mode, as ``tests/test_pallas_kernel.py`` runs it, in f64 over
-3 x 128 columns, sp=5, to atol 1e-12. The kernel body
+(the plain version) is held against the reference's plain chain rule
+``cartpole_tpu/ops/lanes.py::segment_rollout_with_jac_scan``, the function
+whose contract the reference's Pallas kernel
+``cartpole_tpu/ops/pallas_kernels.py::segment_jac_batch_last`` implements
+(``tests/test_pallas_kernel.py`` holds that kernel against the same chain
+rule), in f64 over 3 x 128 columns, sp=5, to atol 1e-12. The kernel body
 (``csrc/segment_jac.cuh``) is compiled with g++ through
 ``csrc/host_check.cc`` and held against the plain version in f64 to 1e-12.
 The wrapper takes the plain version on CPU tensors, and its input guards
@@ -27,8 +29,7 @@ import jax.numpy as jnp
 
 from cartpole_tpu.models import SINGLE_CARTPOLE as REF_MODEL
 from cartpole_tpu.models import _single_gen as ref_gen
-from cartpole_tpu.ops.pallas_kernels import (
-    segment_jac_batch_last as ref_segment_jac)
+from cartpole_tpu.ops.lanes import segment_rollout_with_jac_scan
 from cartpole_tpu_torch.models.base import SINGLE_CARTPOLE
 from cartpole_tpu_torch.ops import pallas_kernels as pk
 
@@ -58,10 +59,10 @@ def _plain(p, xs, us, angle=ANGLE):
 
 @pytest.fixture(scope="module")
 def against_reference():
-    """One interpret-mode call of the reference kernel (its cost is ~30 s
-    whatever R) over three column blocks: random states with the default
-    params, random states with per-column params, and the hanging rest
-    state. Returns ``{block: (port outputs, reference outputs)}``."""
+    """The reference chain rule over three column blocks: random states
+    with the default params, random states with per-column params, and the
+    hanging rest state. Returns ``{block: (port outputs, reference
+    outputs)}``."""
     blocks = {"default_params": _inputs(R=128, seed=0),
               "per_column_params": _inputs(R=128, seed=1, per_column=True)}
     rest = np.zeros((4, 128))
@@ -70,9 +71,11 @@ def against_reference():
                             np.zeros((5, 128)))
     p, xs, us = (np.concatenate([b[k] for b in blocks.values()], axis=1)
                  for k in range(3))
-    ref = ref_segment_jac(ref_gen.single_dynamics_jac, jnp.asarray(p),
-                          jnp.asarray(xs), jnp.asarray(us), H,
-                          REF_MODEL.angle_indices, interpret=True)
+    p_rows = tuple(jnp.asarray(row) for row in p)
+    ref = segment_rollout_with_jac_scan(
+        lambda xr, u: ref_gen.single_dynamics_jac_core(p_rows, xr, u),
+        tuple(jnp.asarray(row) for row in xs), jnp.asarray(us), H,
+        REF_MODEL.angle_indices)
     out = _plain(p, xs, us)
     return {name: tuple((a[..., i * 128:(i + 1) * 128],
                          np.asarray(b)[..., i * 128:(i + 1) * 128])
