@@ -6,7 +6,8 @@
 // statics into a buffer laid out as the card's shared memory, a ragged last
 // block masking whole instances, and every instance's stages run lane by
 // lane, one stage after another, over `lanes` lanes. Kernel 2 loops the
-// per-column segment Jacobian over the columns. The tests build it with
+// per-column segment Jacobian, templated on the steps per segment as the
+// card's launcher dispatches it, over the columns. The tests build it with
 //   g++ -O2 -std=c++17 -shared -fPIC -o libkernels_host.so host_check.cc
 // and hold it against ops/fused.py::fused_iteration_reference and
 // ops/pallas_kernels.py::segment_jac_batch_last_reference in f64.
@@ -70,14 +71,31 @@ extern "C" int fused_workspace_reals(int K, int N, int S, int n_u, int n_all,
 
 extern "C" int fused_statics_reals(int K) { return fused::statics_reals(K); }
 
+// Kernel 2's column body for SP = sp steps, over every column.
+template <int SP = 1>
+int segment_jac_host(const double* params, const double* xs,
+                     const double* us, double* xe, double* jx, double* ju,
+                     int R, int sp, double h, double h_half, double h_sixth,
+                     int angle_mask) {
+  if constexpr (SP > segjac::SPMAX) {
+    return 1;
+  } else {
+    if (sp != SP)
+      return segment_jac_host<SP + 1>(params, xs, us, xe, jx, ju, R, sp, h,
+                                      h_half, h_sixth, angle_mask);
+    for (int r = 0; r < R; ++r)
+      segjac::segment_jac_column<SP, segjac::SingleCartPole>(
+          params, xs, us, xe, jx, ju, R, h, h_half, h_sixth, angle_mask, r);
+    return 0;
+  }
+}
+
 extern "C" int segment_jac_host_f64(const double* params, const double* xs,
                                     const double* us, double* xe, double* jx,
                                     double* ju, int R, int sp, double h,
                                     double h_half, double h_sixth,
                                     int angle_mask) {
-  if (R < 1 || sp < 1 || sp > segjac::SPMAX) return 1;
-  for (int r = 0; r < R; ++r)
-    segjac::segment_jac_column<segjac::SingleCartPole>(
-        params, xs, us, xe, jx, ju, R, sp, h, h_half, h_sixth, angle_mask, r);
-  return 0;
+  if (R < 1) return 1;
+  return segment_jac_host(params, xs, us, xe, jx, ju, R, sp, h, h_half,
+                          h_sixth, angle_mask);
 }

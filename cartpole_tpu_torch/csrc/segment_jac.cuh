@@ -2,10 +2,10 @@
 // both kernels of the port share.
 //
 // Kernel 2 (segment_jac.cu) runs segment_jac_column for one column per
-// thread. It replaces cartpole_tpu/ops/pallas_kernels.py::
-// segment_jac_batch_last (the Pallas kernel of _make_kernel and
-// _rk4_jac_components). Kernel 1 (fused_iteration.cuh) calls
-// segment_rollout_with_jac as stage 1 of its Gauss-Newton iteration. Plain
+// thread, templated on the steps per segment. It replaces
+// cartpole_tpu/ops/pallas_kernels.py::segment_jac_batch_last (the Pallas
+// kernel of _make_kernel and _rk4_jac_components). Kernel 1
+// (fused_iteration.cuh) shares the model, stage_jac and wrap. Plain
 // PyTorch version: ops/pallas_kernels.py::segment_jac_batch_last_reference.
 //
 // The dynamics model is a compile-time parameter (the reference passes the
@@ -104,12 +104,15 @@ __host__ __device__ inline void rk4_step_jac(const T* p, T* x, T u, T h,
   }
 }
 
-// One shooting segment of `steps` RK4 steps from x0 with the accumulated
+// One shooting segment of SP RK4 steps from x0 with the accumulated
 // Jacobians Jx = dx_end/dx0 (row-major SD x SD) and
-// Ju[t * SD + i] = d x_end[i] / d us[t].
-template <typename Model, typename T>
+// Ju[t * SD + i] = d x_end[i] / d us[t * u_stride]. SP is a compile-time
+// constant so that Ju stays in registers: the step loop is not unrolled
+// (one copy of the RK4 body), and the loop over Ju's columns is, each
+// column updated while it is an earlier step's (c < k) and set at its own.
+template <int SP, typename Model, typename T>
 __host__ __device__ inline void segment_rollout_with_jac(
-    const T* p, const T* x0, const T* us, int steps, T h, T h_half,
+    const T* p, const T* x0, const T* us, size_t u_stride, T h, T h_half,
     T h_sixth, int angle_mask, T* x_end, T* Jx, T* Ju) {
   constexpr int SD = Model::SD;
   T x[SD];
@@ -117,9 +120,11 @@ __host__ __device__ inline void segment_rollout_with_jac(
     x[i] = x0[i];
     for (int j = 0; j < SD; ++j) Jx[i * SD + j] = (i == j) ? T(1) : T(0);
   }
-  for (int k = 0; k < steps; ++k) {
+#pragma unroll 1
+  for (int k = 0; k < SP; ++k) {
     T A[SD * SD], Bv[SD], tmp[SD * SD];
-    rk4_step_jac<Model>(p, x, us[k], h, h_half, h_sixth, angle_mask, A, Bv);
+    rk4_step_jac<Model>(p, x, us[k * u_stride], h, h_half, h_sixth,
+                        angle_mask, A, Bv);
     for (int i = 0; i < SD; ++i)
       for (int j = 0; j < SD; ++j) {
         T acc = T(0);
@@ -127,39 +132,42 @@ __host__ __device__ inline void segment_rollout_with_jac(
         tmp[i * SD + j] = acc;
       }
     for (int e = 0; e < SD * SD; ++e) Jx[e] = tmp[e];
-    for (int c = 0; c < k; ++c) {
-      T col[SD];
-      for (int i = 0; i < SD; ++i) col[i] = Ju[c * SD + i];
-      for (int i = 0; i < SD; ++i) {
-        T acc = T(0);
-        for (int q = 0; q < SD; ++q) acc += A[i * SD + q] * col[q];
-        Ju[c * SD + i] = acc;
+#pragma unroll
+    for (int c = 0; c < SP; ++c) {
+      if (c < k) {
+        T col[SD];
+        for (int i = 0; i < SD; ++i) col[i] = Ju[c * SD + i];
+        for (int i = 0; i < SD; ++i) {
+          T acc = T(0);
+          for (int q = 0; q < SD; ++q) acc += A[i * SD + q] * col[q];
+          Ju[c * SD + i] = acc;
+        }
+      } else if (c == k) {
+        for (int i = 0; i < SD; ++i) Ju[c * SD + i] = Bv[i];
       }
     }
-    for (int i = 0; i < SD; ++i) Ju[k * SD + i] = Bv[i];
   }
   for (int i = 0; i < SD; ++i) x_end[i] = x[i];
 }
 
 // Column r of kernel 2, batch-last in and out (the reference's contract):
-// params (NP, R), xs (SD, R), us (sp, R) -> xe (SD, R), jx (SD, SD, R),
-// ju (SD, sp, R).
-template <typename Model, typename T>
+// params (NP, R), xs (SD, R), us (SP, R) -> xe (SD, R), jx (SD, SD, R),
+// ju (SD, SP, R).
+template <int SP, typename Model, typename T>
 __host__ __device__ inline void segment_jac_column(
     const T* params, const T* xs, const T* us, T* xe, T* jx, T* ju, int R,
-    int sp, T h, T h_half, T h_sixth, int angle_mask, int r) {
+    T h, T h_half, T h_sixth, int angle_mask, int r) {
   constexpr int SD = Model::SD, NP = Model::NP;
   const size_t n = (size_t)R;
-  T p[NP], x0[SD], u[SPMAX], x_end[SD], Jx[SD * SD], Ju[SPMAX * SD];
+  T p[NP], x0[SD], x_end[SD], Jx[SD * SD], Ju[SP * SD];
   for (int j = 0; j < NP; ++j) p[j] = params[j * n + r];
   for (int i = 0; i < SD; ++i) x0[i] = xs[i * n + r];
-  for (int k = 0; k < sp; ++k) u[k] = us[k * n + r];
-  segment_rollout_with_jac<Model>(p, x0, u, sp, h, h_half, h_sixth,
-                                  angle_mask, x_end, Jx, Ju);
+  segment_rollout_with_jac<SP, Model>(p, x0, us + r, n, h, h_half, h_sixth,
+                                      angle_mask, x_end, Jx, Ju);
   for (int i = 0; i < SD; ++i) {
     xe[i * n + r] = x_end[i];
     for (int j = 0; j < SD; ++j) jx[(i * SD + j) * n + r] = Jx[i * SD + j];
-    for (int k = 0; k < sp; ++k) ju[((size_t)i * sp + k) * n + r] = Ju[k * SD + i];
+    for (int k = 0; k < SP; ++k) ju[((size_t)i * SP + k) * n + r] = Ju[k * SD + i];
   }
 }
 

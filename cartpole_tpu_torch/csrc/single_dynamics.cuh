@@ -1,7 +1,7 @@
 // Machine-generated cart-pole dynamics for CUDA C++ -- do not edit.
 //
 // Generated by `python -m cartpole_tpu_torch.symbolic.generate` from the SymPy
-// Euler-Lagrange derivation in cartpole_tpu/symbolic/lagrangian.py; the same
+// Euler-Lagrange derivation in symbolic/lagrangian.py; the same
 // CSE feeds models/_single_gen.py. Templated on the real type T. The dyn_*
 // helpers call the precise library functions of T (sinf for float, sin for
 // double), never the __sinf-style fast intrinsics.

@@ -1,7 +1,7 @@
 """Machine-generated cart-pole dynamics for PyTorch — do not edit.
 
 Generated by ``python -m cartpole_tpu_torch.symbolic.generate`` from the
-SymPy Euler-Lagrange derivation in ``cartpole_tpu/symbolic/lagrangian.py``;
+SymPy Euler-Lagrange derivation in ``symbolic/lagrangian.py``;
 the same CSE feeds ``csrc/single_dynamics.cuh``. Counterpart of
 ``cartpole_tpu/models/_single_gen.py``.
 """

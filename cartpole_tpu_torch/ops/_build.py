@@ -115,6 +115,9 @@ def open_library(path: str) -> ctypes.CDLL:
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
                        + [real] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+    fn = lib.segment_jac_occupancy_f32
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
     return lib
 
 

@@ -17,10 +17,12 @@ condensed_step``), one launch per Gauss-Newton iteration.
   columns: the reference's ``PALLAS_CHUNK`` bounded TPU VMEM and has no
   counterpart here) or raise. ``segment_jac_batch_last.launches`` counts
   kernel launches.
+* :func:`kernel_occupancy` reports what a launch gets on the card.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Tuple
 
@@ -29,7 +31,8 @@ import torch
 from ..models.base import SINGLE_CARTPOLE
 from .lanes import segment_rollout_with_jac_scan
 
-__all__ = ["segment_jac_batch_last", "segment_jac_batch_last_reference"]
+__all__ = ["segment_jac_batch_last", "segment_jac_batch_last_reference",
+           "kernel_occupancy"]
 
 #: Compile-time maximum of the steps per segment (csrc/segment_jac.cuh).
 SPMAX = 16
@@ -116,6 +119,31 @@ def _launch_cuda(params_cols, xs_cols, us_cols, h, angle_indices, model):
                            f"{rc}")
     segment_jac_batch_last.launches += 1
     return x_end, Jx, Ju
+
+
+def kernel_occupancy(R: int, sp: int, threads: int = THREADS_PER_BLOCK):
+    """What an f32 launch of the kernel over ``R`` columns of ``sp`` steps in
+    blocks of ``threads`` gets on the current card, as the CUDA runtime
+    reports it: registers and local (stack) bytes per thread, resident
+    blocks and warps per SM, warps of work per SM and the waves the grid
+    takes."""
+    from ._build import load_library
+
+    out = (ctypes.c_int * 3)()
+    rc = load_library().segment_jac_occupancy_f32(sp, threads, out)
+    if rc != 0:
+        raise RuntimeError(f"segment_jac occupancy query failed: CUDA error "
+                           f"{rc}")
+    registers, local_bytes, blocks = out
+    n_sm = torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count
+    warps_per_block = -(-threads // 32)
+    return dict(threads_per_block=threads, registers=registers,
+                local_bytes=local_bytes, blocks_per_sm=blocks,
+                resident_warps_per_sm=blocks * warps_per_block,
+                warps_of_work_per_sm=-(-R // threads) * warps_per_block
+                / n_sm,
+                waves=-(-R // max(1, blocks * threads * n_sm)))
 
 
 def segment_jac_batch_last(params_cols, xs_cols, us_cols, h: float,

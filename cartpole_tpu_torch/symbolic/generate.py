@@ -2,7 +2,7 @@
 
 Counterpart of ``cartpole_tpu/symbolic/generate.py``. Both outputs come from
 ONE common-subexpression elimination of the SymPy Euler-Lagrange derivation
-``derive_single_cartpole`` (``cartpole_tpu/symbolic/lagrangian.py``), so the
+``derive_single_cartpole`` (``symbolic/lagrangian.py``), so the
 plain PyTorch path and the hand-written kernel evaluate the same expression
 DAG:
 
@@ -16,8 +16,8 @@ DAG:
   precise single- or double-precision library function for ``T`` (never the
   ``__sinf``-style intrinsics).
 
-The derivation file imports only sympy and typing. It is loaded by path, so
-generating never imports the JAX package.
+The derivation is the port's own copy, ``symbolic/lagrangian.py``; it
+imports only sympy and typing.
 
 Usage (rewrites both outputs; ``tests/test_torch_dynamics.py`` checks that
 the committed ones are current)::
@@ -27,28 +27,16 @@ the committed ones are current)::
 
 from __future__ import annotations
 
-import importlib.util
 import os
 import sys
 
-__all__ = ["load_lagrangian", "generate_torch_module", "generate_cuda_header",
-           "main"]
+from . import lagrangian
+
+__all__ = ["generate_torch_module", "generate_cuda_header", "main"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_LAGRANGIAN = os.path.join(
-    os.path.dirname(_PKG), "cartpole_tpu", "symbolic", "lagrangian.py"
-)
 TORCH_OUT = os.path.join(_PKG, "models", "_single_gen.py")
 CUDA_OUT = os.path.join(_PKG, "csrc", "single_dynamics.cuh")
-
-
-def load_lagrangian(path: str = _LAGRANGIAN):
-    """Import the SymPy derivation module by file path (its package
-    ``__init__`` would import jax)."""
-    spec = importlib.util.spec_from_file_location("_cartpole_lagrangian", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def _cse(model):
@@ -204,7 +192,7 @@ def _printers():
 _TORCH_HEADER = '''"""Machine-generated cart-pole dynamics for PyTorch — do not edit.
 
 Generated by ``python -m cartpole_tpu_torch.symbolic.generate`` from the
-SymPy Euler-Lagrange derivation in ``cartpole_tpu/symbolic/lagrangian.py``;
+SymPy Euler-Lagrange derivation in ``symbolic/lagrangian.py``;
 the same CSE feeds ``csrc/single_dynamics.cuh``. Counterpart of
 ``cartpole_tpu/models/_single_gen.py``.
 """
@@ -220,7 +208,7 @@ STATE_DIM = {sd}
 _CUDA_HEADER = '''// Machine-generated cart-pole dynamics for CUDA C++ -- do not edit.
 //
 // Generated by `python -m cartpole_tpu_torch.symbolic.generate` from the SymPy
-// Euler-Lagrange derivation in cartpole_tpu/symbolic/lagrangian.py; the same
+// Euler-Lagrange derivation in symbolic/lagrangian.py; the same
 // CSE feeds models/_single_gen.py. Templated on the real type T. The dyn_*
 // helpers call the precise library functions of T (sinf for float, sin for
 // double), never the __sinf-style fast intrinsics.
@@ -398,7 +386,7 @@ def generate_cuda_header(model) -> str:
 
 
 def main() -> int:
-    model = load_lagrangian().derive_single_cartpole()
+    model = lagrangian.derive_single_cartpole()
     for path, src in ((TORCH_OUT, generate_torch_module(model)),
                       (CUDA_OUT, generate_cuda_header(model))):
         with open(path, "w") as f:

@@ -13,19 +13,25 @@ bench.py's swing-up initial states, seed 0):
   iteration, the rest eager torch (``TICKS_PATH2`` ticks).
 
 Phases, each fatal on failure: device; build (both kernels in one library,
-one nvcc per source in parallel; kernel 1's registers and spills);
-segment_jac (kernel 2 against its plain version, f64 and f32, on random
-columns and on the cold-start shooting problem); kernel 1 against its plain
-version (cold start, and a ragged batch of RAGGED instances that leaves the
-last block part full); path 1; kernel 1 against its plain version (warm
-starts after tick 1 and the last tick); disturbed (100 ticks of path 1 with
-a shove at the pole mass); path 2; cross (path 2 against path 1 on the
-cold-start problem, and path 2 under
-``torch.set_float32_matmul_precision("high")``); timing and a profile of
-one tick of each path (device-busy share, kernel launches), with kernel 1's
-launch layout (instances and shared bytes per block, resident blocks per
-SM). Every kernel launch counter is set to 0 just before a path is driven
-and read just after. Prints the card's name and power limit beside every number, one JSON
+one nvcc per source in parallel; both kernels' registers, stack frames and
+spills, kernel 2 for each of its step-count instantiations, none of which
+may spill in f32); segment_jac (kernel 2 against its plain version, f64 and f32, on
+random columns, a ragged R that leaves the last block part full, one and
+SPMAX steps per segment, and the cold-start shooting problem); kernel 1
+against its plain version (cold start, and a ragged batch of RAGGED
+instances that leaves the last block part full); path 1; kernel 1 against
+its plain version (warm starts after tick 1 and the last tick); disturbed
+(100 ticks of path 1 with a shove at the pole mass); path 2; kernel 2
+against its plain version on the warm linearization after path 2's last
+tick; cross (path 2 against path 1 on the cold-start problem, and path 2
+under ``torch.set_float32_matmul_precision("high")``); timing (both
+kernels by device time, ``device_ms``: kernel 1 on the warm problem after
+path 1's last tick, kernel 2 on the cold and the warm problem) and a
+profile of one tick of each path (device-busy share, kernel launches), with
+both kernels' launch layouts (registers, shared bytes per block, resident
+blocks and warps per SM).
+Every kernel launch counter is set to 0 just before a path is driven and
+read just after. Prints the card's name and power limit beside every number, one JSON
 line describing the kernels, and as its last line ``{"ok": true, "device":
 {...}}``.
 
@@ -39,6 +45,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -54,8 +61,9 @@ from cartpole_tpu_torch.ops import _build, fused
 from cartpole_tpu_torch.ops import pallas_kernels as pk
 
 BATCH, TICKS, TICKS_PATH2, TICKS_DISTURBED = 4096, 300, 300, 100
-#: A batch that is not a multiple of kernel 1's instances per block.
-RAGGED = 4093
+#: A batch that is not a multiple of kernel 1's instances per block, and a
+#: column count that is not one of kernel 2's columns per block.
+RAGGED, RAGGED_COLUMNS = 4093, 32765
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s off the
 #: tensor cores.
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
@@ -161,6 +169,71 @@ def time_cuda(fn, reps):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def device_ms(fns, reps=20, rounds=7, hold_cycles=20_000_000):
+    """Median and least device ms per call of each of ``fns`` (a dict),
+    over ``rounds`` rounds in which the functions take turns, each round
+    ``reps`` calls between two CUDA events. A kernel shorter than the
+    host's enqueue of a call would leave the card idle between launches,
+    and the events would time the host: so the card is first held busy
+    (``torch.cuda._sleep``, ~10 ms) while the host enqueues the calls, and
+    a round whose first event had already passed when the last call was
+    enqueued fails."""
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    times = {k: [] for k in fns}
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            torch.cuda._sleep(hold_cycles)
+            t0.record()
+            for _ in range(reps):
+                fn()
+            t1.record()
+            if t0.query():
+                raise SystemExit(f"device_ms: the card idled while {k} "
+                                 f"was enqueued")
+            t1.synchronize()
+            times[k].append(t0.elapsed_time(t1) / reps)
+    return {k: (float(np.median(v)), min(v)) for k, v in times.items()}
+
+
+def clocks() -> str:
+    """The card's SM clock, its maximum, power draw and temperature now."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def ptxas_entries(log: str):
+    """Each kernel entry of a ``ptxas -v`` log: the kernel's name, for
+    kernel 2 its steps per segment and real type, registers, stack frame
+    bytes and spill-store bytes."""
+    out, lines = [], log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry" not in line:
+            continue
+        props = next(x for x in lines[i + 1:] if "stack frame" in x)
+        regs = next(x for x in lines[i + 1:] if "registers" in x)
+        e = dict(kernel=None, registers=int(
+            re.search(r"Used (\d+) registers", regs).group(1)),
+                 stack=int(re.search(r"(\d+) bytes stack frame",
+                                     props).group(1)),
+                 spill=int(re.search(r"(\d+) bytes spill stores",
+                                     props).group(1)))
+        if "fused_iteration_kernel" in line:
+            e["kernel"] = "fused_iteration"
+        m = re.search(r"segment_jac_kernelILi(\d+)E([fd])E", line)
+        if m:
+            e.update(kernel="segment_jac", sp=int(m.group(1)),
+                     dtype="f32" if m.group(2) == "f" else "f64")
+        out.append(e)
+    return out
 
 
 def time_host(fn, reps):
@@ -452,19 +525,33 @@ def run(dev) -> int:
     _build.load_library()
     build_s = time.perf_counter() - t0
     print(f"[build] {build_s:.1f} s -> {os.path.relpath(path)}", flush=True)
-    lines = log.splitlines()
-    for line in lines:
-        if any(k in line for k in ("Compiling entry", "registers",
-                                   "stack frame", "spill")):
-            print(f"  ptxas: {line.strip()}", flush=True)
-    for i, line in enumerate(lines):
-        if "Compiling entry" in line and "fused_iteration_kernel" in line:
-            regs = next(x for x in lines[i:] if "registers" in x)
-            spill = next(x for x in lines[i:] if "spill" in x)
+    if not log:
+        print("[build] the library was built before: no ptxas report",
+              flush=True)
+    entries = ptxas_entries(log)
+    for e in entries:
+        if e["kernel"] == "fused_iteration":
             print(f"[build] kernel 1 (fused_iteration, "
                   f"{fused.LANES_PER_INSTANCE} lanes per instance): "
-                  f"{regs.split(':', 1)[1].strip()}; {spill.strip()}",
-                  flush=True)
+                  f"{e['registers']} registers; {e['stack']} B stack frame, "
+                  f"{e['spill']} B spill stores", flush=True)
+    for dtype in ("f32", "f64") if log else ():
+        k2 = [e for e in entries
+              if e["kernel"] == "segment_jac" and e["dtype"] == dtype]
+        if len(k2) != pk.SPMAX:
+            raise SystemExit(f"[build] {len(k2)} {dtype} kernel-2 entries "
+                             f"in the ptxas log, not {pk.SPMAX}")
+        main_sp = next(e for e in k2 if e["sp"] == 5)
+        print(f"[build] kernel 2 (segment_jac, {dtype}, one thread per "
+              f"column, sp=5): {main_sp['registers']} registers; "
+              f"{main_sp['stack']} B stack frame, {main_sp['spill']} B "
+              f"spill stores; over sp=1..{pk.SPMAX}: "
+              f"{min(e['registers'] for e in k2)}-"
+              f"{max(e['registers'] for e in k2)} registers, stack frames "
+              f"up to {max(e['stack'] for e in k2)} B, spill stores up to "
+              f"{max(e['spill'] for e in k2)} B", flush=True)
+        if dtype == "f32" and any(e["spill"] for e in k2):
+            raise SystemExit("[build] kernel 2 spills in f32")
 
     B = BATCH
     mpc = pt.make_mpc(pt.OptimizationParams(
@@ -483,6 +570,12 @@ def run(dev) -> int:
     R = S * B
     check_segment_jac("random columns, seed 0",
                       segment_inputs_random(R, sp, dev), h, angle, card)
+    check_segment_jac("random columns, ragged", segment_inputs_random(
+        RAGGED_COLUMNS, sp, dev, seed=1), h, angle, card)
+    for n_steps in (1, pk.SPMAX):
+        check_segment_jac(f"random columns, sp={n_steps}",
+                          segment_inputs_random(R, n_steps, dev, seed=2), h,
+                          angle, card)
     problem_c, Z0_c = setup_problem(mpc, cold, x0, torch.float64)
     seg_cold = segment_inputs_problem(problem_c, Z0_c)
     seg_err = check_segment_jac("cold-start shooting problem", seg_cold, h,
@@ -585,6 +678,14 @@ def run(dev) -> int:
     if not torch.isfinite(res2.controls).all():
         raise SystemExit("path 2 produced non-finite controls")
 
+    # ------------------------------- kernel 2, the warm linearization
+    problem2, Z02 = lanes._prepare(mpc, res2.final_mpc_state,
+                                   res2.final_state, dp)
+    seg_warm = segment_inputs_problem(problem2, Z02)
+    seg_err = max(seg_err, check_segment_jac(
+        f"warm linearization after tick {TICKS_PATH2} of path 2", seg_warm,
+        h, angle, card))
+
     # ------------------------------------------- path 2 against path 1
     problem32, Z0_32 = setup_problem(mpc, cold, x0, torch.float32)
     Za, oa = lanes._solve_lanes(problem32, Z0_32, cfg, fused=False)
@@ -631,8 +732,9 @@ def run(dev) -> int:
     wargs = (problem_w.statics.fused, dp, problem_w.x_current,
              problem_w.set_point, problem_w.u_prev)
     carry_w = lanes._init_carry(Z0_w, cfg)
-    kern_ms = time_cuda(
-        lambda: fused.fused_solve(*wargs, carry_w, cfg.max_iterations), 20)
+    k1_t = device_ms({"warm": lambda: fused.fused_solve(
+        *wargs, carry_w, cfg.max_iterations)}, reps=5)
+    kern_ms = k1_t["warm"][0]
     plain_ms = time_cuda(
         lambda: _plain_solve(wargs, carry_w, cfg.max_iterations), 1)
     _, io_c, io_t, io = fused.kernel_io(*wargs, *carry_w, cfg.max_iterations)
@@ -643,9 +745,18 @@ def run(dev) -> int:
     k1_bound, k1_by = bound(k1_bytes, k1_ops)
     occ = fused.kernel_occupancy(problem_w.statics.fused, B)
 
-    # Kernel 2 on the cold-start shooting problem, f32.
+    # Kernel 2 on the cold-start shooting problem and on path 2's warm
+    # linearization, f32.
     seg32 = tuple(t.float() for t in seg_cold)
-    k2_ms = time_cuda(lambda: pk.segment_jac_batch_last(*seg32, h, angle), 50)
+    warm32 = tuple(t.float() for t in seg_warm)
+    clocks_before = clocks()
+    k2_t = device_ms({
+        "cold": lambda: pk.segment_jac_batch_last(*seg32, h, angle),
+        "warm": lambda: pk.segment_jac_batch_last(*warm32, h, angle)})
+    k2_ms, k2_warm_ms = k2_t["cold"][0], k2_t["warm"][0]
+    k2_host_ms = time_cuda(
+        lambda: pk.segment_jac_batch_last(*seg32, h, angle), 50)
+    occ2 = pk.kernel_occupancy(R, sp)
     k2_plain_ms = time_cuda(
         lambda: pk.segment_jac_batch_last_reference(*seg32, h, angle), 3)
     outs = pk.segment_jac_batch_last(*seg32, h, angle)
@@ -655,8 +766,6 @@ def run(dev) -> int:
     k2_bound, k2_by = bound(k2_bytes, k2_ops)
 
     # Path 2's split, on the warm problem after its last tick.
-    problem2, Z02 = lanes._prepare(mpc, res2.final_mpc_state,
-                                   res2.final_state, dp)
     lam = torch.full((B,), cfg.lambda_initial, device=dev)
     n_ls = cfg.max_line_search_iterations
     with fused.full_f32_matmul():
@@ -674,7 +783,8 @@ def run(dev) -> int:
     print(f"[timing] path 1: solves/s {B * TICKS / loop_s:.1f} ({TICKS} "
           f"ticks); ms/tick mean {loop_s / TICKS * 1e3:.2f}, median "
           f"{med_tick:.2f} (20 single ticks); kernel 1 {kern_ms:.3f} "
-          f"ms/solve (8 iterations, 1 launch; bound {k1_bound:.4f} ms by "
+          f"ms/solve (device time, least {k1_t['warm'][1]:.3f}; 8 "
+          f"iterations, 1 launch; bound {k1_bound:.4f} ms by "
           f"{k1_by}: {k1_bytes} B, {k1_ops:.4e} ops), plain version "
           f"{plain_ms:.3f} ms/solve; launches per tick "
           f"{n1['fused_iteration'] / TICKS:.0f}; kernel share of the median "
@@ -695,9 +805,25 @@ def run(dev) -> int:
           f"{k2_bound:.4f} ms by {k2_by}: {k2_bytes} B, {k2_ops:.4e} ops), "
           f"plain version {k2_plain_ms:.3f} ms; launches per tick "
           f"{n2['segment_jac'] / TICKS_PATH2:.0f}  ({card})", flush=True)
+    print(f"[timing] kernel 2 layout: one thread per column, "
+          f"{occ2['threads_per_block']} threads per block, "
+          f"{occ2['registers']} registers and {occ2['local_bytes']} B of "
+          f"local memory per thread, {occ2['blocks_per_sm']} resident "
+          f"blocks ({occ2['resident_warps_per_sm']} warps) per SM against "
+          f"{occ2['warps_of_work_per_sm']:.2f} warps of work per SM "
+          f"({occ2['waves']} waves); "
+          f"{k2_ms:.4f} ms/launch cold, {k2_warm_ms:.4f} ms/launch on the "
+          f"warm linearization after tick {TICKS_PATH2} (device time: "
+          f"medians of 7 rounds of 20 launches queued behind a held card; "
+          f"least {k2_t['cold'][1]:.4f} and {k2_t['warm'][1]:.4f}; one "
+          f"launch as the host enqueues it, by CUDA events, "
+          f"{k2_host_ms:.4f} ms), against a bound of "
+          f"{k2_bound:.5f} ms; "
+          f"SM clock, max, power, temperature before: {clocks_before}  "
+          f"({card})", flush=True)
     print(f"[timing] path 2 split per tick (x{n_it} iterations): kernel 2 "
-          f"{n_it * k2_ms:.3f} ms, rest of condensed_step (eager) "
-          f"{n_it * (step_ms - k2_ms):.2f} ms, trial evaluation (5 x "
+          f"{n_it * k2_warm_ms:.3f} ms, rest of condensed_step (eager) "
+          f"{n_it * (step_ms - k2_warm_ms):.2f} ms, trial evaluation (5 x "
           f"{B} folded) {n_it * trial_ms:.2f} ms, everything else "
           f"{med_tick2 - n_it * (step_ms + trial_ms):.2f} ms of the "
           f"{med_tick2:.2f} ms median tick  ({card})", flush=True)

@@ -1,10 +1,17 @@
 """Generated torch dynamics of the PyTorch port against the JAX package.
 
 ``cartpole_tpu_torch/models/_single_gen.py`` and ``csrc/single_dynamics.cuh``
-are emitted from one CSE of the SymPy derivation; here the torch functions
-are held against ``cartpole_tpu/models/_single_gen.py`` in f64 on random
-states, to 1e-12, and the committed outputs against a fresh generation.
+are emitted from one CSE of the port's copy of the SymPy derivation; here
+the torch functions are held against ``cartpole_tpu/models/_single_gen.py``
+in f64 on random states, to 1e-12, the committed outputs against a fresh
+generation, and the port's copy of the derivation against the JAX
+package's file. No module of the port, and not ``chip_smoke.py``, imports
+JAX or the JAX package or builds a path into it.
 """
+
+import ast
+import importlib.util
+import os
 
 import numpy as np
 import pytest
@@ -18,8 +25,9 @@ from cartpole_tpu.models import _single_gen as ref_gen
 from cartpole_tpu_torch.models import _single_gen as gen
 from cartpole_tpu_torch.models.base import get_model
 from cartpole_tpu_torch.models.params import default_single_params
-from cartpole_tpu_torch.symbolic import generate
+from cartpole_tpu_torch.symbolic import generate, lagrangian
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PARAMS = (1.0, 0.1, 0.25, 9.81, 0.03, 0.1, 0.13, 0.8, 100.0)
 
 
@@ -107,8 +115,8 @@ def test_model_wrappers_use_field_order():
 
 def test_generated_files_are_current():
     """The committed torch module and CUDA header are what the generator
-    emits from the derivation today."""
-    model = generate.load_lagrangian().derive_single_cartpole()
+    emits from the port's copy of the derivation today."""
+    model = lagrangian.derive_single_cartpole()
     with open(generate.TORCH_OUT) as f:
         assert f.read() == generate.generate_torch_module(model)
     with open(generate.CUDA_OUT) as f:
@@ -116,6 +124,22 @@ def test_generated_files_are_current():
     assert header == generate.generate_cuda_header(model)
     # Precise transcendentals only: no fast-math intrinsics.
     assert "__sinf(" not in header and "__cosf(" not in header
+
+
+def test_port_lagrangian_matches_the_reference():
+    """The port's copy of the derivation and the JAX package's file give the
+    same generated sources. The only place the reference file is loaded (by
+    path: its package would import jax)."""
+    path = os.path.join(ROOT, "cartpole_tpu", "symbolic", "lagrangian.py")
+    spec = importlib.util.spec_from_file_location("_ref_lagrangian", path)
+    ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref)
+    ours = lagrangian.derive_single_cartpole()
+    theirs = ref.derive_single_cartpole()
+    assert generate.generate_torch_module(ours) == \
+        generate.generate_torch_module(theirs)
+    assert generate.generate_cuda_header(ours) == \
+        generate.generate_cuda_header(theirs)
 
 
 @pytest.mark.parametrize("forces", ["none", "base", "mass", "both"])
@@ -156,3 +180,72 @@ def test_packed_dynamics_matches_reference(forces, per_instance):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-12,
                                atol=1e-12)
     assert get_model("single").dynamics is single_cartpole_dynamics
+
+
+def _docstrings(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(first.value,
+                                                          ast.Constant):
+                yield first.value
+
+
+def _replaces_values(tree):
+    """The "replaces" entries of chip_smoke.py's kernel line: names of the
+    TPU kernels, not paths the port opens."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Dict):
+            for k, v in zip(node.keys, node.values):
+                if isinstance(k, ast.Constant) and k.value == "replaces":
+                    yield v
+
+
+def _jax_refs(path):
+    """Imports of jax or of the JAX package, and strings that name it as a
+    module or build a path into it, in one file."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    skip = {id(n) for n in _docstrings(tree)} | {
+        id(n) for n in _replaces_values(tree)}
+    out = []
+
+    def bad(name):
+        root = name.split(".")[0]
+        return root in ("jax", "jaxlib", "cartpole_tpu")
+
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            out += [a.name for a in node.names if bad(a.name)]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module and bad(node.module):
+                out.append(node.module)
+        elif (isinstance(node, ast.Constant) and isinstance(node.value, str)
+              and id(node) not in skip and not any(
+                  c.isspace() for c in node.value)):
+            v = node.value
+            if v in ("jax", "cartpole_tpu") or v.startswith(
+                    ("jax.", "cartpole_tpu.", "cartpole_tpu/")):
+                out.append(repr(v))
+    return out
+
+
+def test_port_never_reaches_the_jax_package(tmp_path):
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(ROOT, "cartpole_tpu_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    assert len(files) > 20
+    found = {os.path.relpath(f, ROOT): r for f in files
+             if (r := _jax_refs(f))}
+    assert not found
+    # The scan sees what it looks for.
+    probe = tmp_path / "probe.py"
+    probe.write_text(
+        '"""Docstrings may name cartpole_tpu/ops/fused.py."""\n'
+        "import jax.numpy\n"
+        "from cartpole_tpu.ops import fused\n"
+        "path = os.path.join(root, 'cartpole_tpu', 'symbolic')\n"
+        "line = {'replaces': 'cartpole_tpu/ops/fused.py:938'}\n")
+    assert _jax_refs(str(probe)) == ["jax.numpy", "cartpole_tpu.ops",
+                                     "'cartpole_tpu'"]

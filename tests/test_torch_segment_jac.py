@@ -8,7 +8,8 @@ whose contract the reference's Pallas kernel
 (``tests/test_pallas_kernel.py`` holds that kernel against the same chain
 rule), in f64 over 3 x 128 columns, sp=5, to atol 1e-12. The kernel body
 (``csrc/segment_jac.cuh``) is compiled with g++ through
-``csrc/host_check.cc`` and held against the plain version in f64 to 1e-12.
+``csrc/host_check.cc`` and held against the plain version in f64 to 1e-12,
+for every step count its launchers dispatch to.
 The wrapper takes the plain version on CPU tensors, and its input guards
 (which a CUDA launch runs first) raise on what the kernel does not take.
 """
@@ -148,6 +149,26 @@ def test_host_build_matches_plain_version(host_lib, case):
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-12,
                                    atol=1e-12)
+
+
+@pytest.mark.parametrize("sp", range(1, pk.SPMAX + 1))
+def test_host_build_every_step_count(host_lib, sp):
+    """Each instantiation of the body the step-count dispatch reaches."""
+    p, xs, us = _inputs(R=8, sp=sp, seed=sp)
+    for a, b in zip(_host(host_lib, p, xs, us), _plain(p, xs, us)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-12,
+                                   atol=1e-12)
+
+
+def test_host_build_refuses_step_counts_out_of_range(host_lib):
+    p, xs, _ = _inputs(R=8)
+    out = torch.empty(4 * 4 * (pk.SPMAX + 1) * 8, dtype=torch.float64)
+    for sp in (0, pk.SPMAX + 1):
+        us = torch.zeros((max(sp, 1), 8), dtype=torch.float64)
+        assert host_lib.segment_jac_host_f64(
+            p.ctypes.data, xs.ctypes.data, us.data_ptr(), out.data_ptr(),
+            out.data_ptr(), out.data_ptr(), 8, sp, H, H * 0.5, H / 6.0,
+            2) == 1
 
 
 def test_cpu_tensors_take_the_plain_version():
