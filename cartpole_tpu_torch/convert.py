@@ -11,18 +11,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .models.params import SingleCartPoleParams
+from .models.base import SINGLE_CARTPOLE, CartPoleModel
 from .mpc.controller import MPCState
 
 __all__ = ["params_from_numpy", "mpc_state_from_numpy"]
 
 
-def params_from_numpy(d: dict, device="cuda", dtype=torch.float64
-                      ) -> SingleCartPoleParams:
-    """``SingleCartPoleParams`` from the reference's
-    ``SingleCartPoleParams.as_dict()`` converted to numpy: each value a
-    scalar or a ``(B,)`` per-instance array."""
-    return SingleCartPoleParams(**{
+def params_from_numpy(d: dict, device="cuda", dtype=torch.float64,
+                      model: CartPoleModel = SINGLE_CARTPOLE):
+    """``model``'s params (``SingleCartPoleParams`` by default) from the
+    reference's ``as_dict()`` of the same model's params converted to
+    numpy: each value a scalar or a ``(B,)`` per-instance array."""
+    return model.params_type(**{
         k: torch.as_tensor(np.array(v), dtype=dtype, device=device)
         for k, v in d.items()
     })

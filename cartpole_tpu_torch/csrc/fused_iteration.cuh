@@ -49,28 +49,37 @@
 // The linearization is kernel 2's chain rule (segment_jac.cuh), with the
 // RK4 stage sums accumulated as they come (rk4_step_jac_acc: the same
 // operations, fewer live registers).
+//
+// Models. The model (segment_jac.cuh's SingleCartPole, DoubleCartPole,
+// TripleCartPole) is a compile-time parameter: what depends on it (its
+// state and parameter counts, its terminal rows, at most one per state
+// coordinate, the workspace layout they give, and its generated cores) is
+// a static member of Body<Model>; the configuration, the statics and the
+// per-instance scalars are shared. The double's and triple's per-lane
+// chain-rule arrays grow with SD^2, so their instantiations run at the
+// register cap with spills (PERF.md has the counts and times).
 #pragma once
 
 #include "segment_jac.cuh"
 
 namespace fused {
 
-constexpr int SD = cartpole_gen::STATE_DIM;
-constexpr int NP = cartpole_gen::N_PARAMS;
-constexpr int ALLMAX = 4;  // terminal rows (costs + equalities)
+// The largest count of terminal rows (costs + equalities): one per state
+// coordinate of the largest compiled model. FusedArgs holds this many.
+constexpr int ROWS_MAX = segjac::SD_MAX;
 
 // Configuration passed by value (mirrored by ops/fused.py::_args_struct).
 template <typename T>
 struct FusedArgs {
   int B, K, N, S, sp, n_u, n_tc, n_t, n_ls, n_iter, angle_mask;
   // Terminal rows: soft costs first, then hard equalities.
-  int row_coord[ALLMAX];
-  int row_is_angle[ALLMAX];
-  int row_is_setpoint[ALLMAX];
-  T row_target[ALLMAX];
-  T w_costs[ALLMAX];
-  T D_diag[ALLMAX];
-  T sqrtD[ALLMAX];
+  int row_coord[ROWS_MAX];
+  int row_is_angle[ROWS_MAX];
+  int row_is_setpoint[ROWS_MAX];
+  T row_target[ROWS_MAX];
+  T w_costs[ROWS_MAX];
+  T D_diag[ROWS_MAX];
+  T sqrtD[ROWS_MAX];
   // dt, dt/2, dt/6 rounded from double, as the reference's scalars are.
   T dt, h_half, h_sixth, u_limit, b_x_limit, w_du, w_u;
   T penalty_margin, armijo_c1, slack_coef, lambda_decrease, lambda_increase,
@@ -138,41 +147,6 @@ __host__ __device__ inline T wrap(const FusedArgs<T>& a, int i, T v) {
   return segjac::wrap(a.angle_mask, i, v);
 }
 
-// One RK4 step (no Jacobians) followed by the angle wrap; x updated in place.
-template <typename T>
-__host__ __device__ inline void rk4_step(const FusedArgs<T>& a, const T* p,
-                                         T* x, T u) {
-  T k1[SD], k2[SD], k3[SD], k4[SD], xt[SD];
-  cartpole_gen::single_dynamics_core(p, x, u, k1);
-  for (int i = 0; i < SD; ++i) xt[i] = x[i] + a.h_half * k1[i];
-  cartpole_gen::single_dynamics_core(p, xt, u, k2);
-  for (int i = 0; i < SD; ++i) xt[i] = x[i] + a.h_half * k2[i];
-  cartpole_gen::single_dynamics_core(p, xt, u, k3);
-  for (int i = 0; i < SD; ++i) xt[i] = x[i] + a.dt * k3[i];
-  cartpole_gen::single_dynamics_core(p, xt, u, k4);
-  for (int i = 0; i < SD; ++i)
-    x[i] = wrap(a, i, x[i] + a.h_sixth * (k1[i] + T(2) * k2[i] +
-                                          T(2) * k3[i] + k4[i]));
-}
-
-// (T^T T)^{-1} b via the R factor (row-major, stride ALLMAX): R^T y = b,
-// then R x = y.
-template <typename T>
-__host__ __device__ inline void schur_solve(const T* R, int n, const T* b,
-                                            T* x) {
-  T y[ALLMAX];
-  for (int i = 0; i < n; ++i) {
-    T acc = b[i];
-    for (int k = 0; k < i; ++k) acc = acc - R[k * ALLMAX + i] * y[k];
-    y[i] = acc / R[i * ALLMAX + i];
-  }
-  for (int i = n - 1; i >= 0; --i) {
-    T acc = y[i];
-    for (int k = i + 1; k < n; ++k) acc = acc - R[i * ALLMAX + k] * x[k];
-    x[i] = acc / R[i * ALLMAX + i];
-  }
-}
-
 template <typename T>
 __host__ __device__ inline T row_target(const FusedArgs<T>& a, int r, T spt) {
   return a.row_is_setpoint[r] ? spt : a.row_target[r];
@@ -224,65 +198,10 @@ struct Layout {
   int total;
 };
 
-// The small per-instance vectors, ALLMAX reals each from Layout::small.
+// The small per-instance vectors, Body::ALLMAX reals each from Layout::small.
 enum SmallVec {
   R_TERM, TERM_AFF, B_ALL, C_TERM, MU, RHS, E, RES_C, ORIG, QR_H, N_SMALL
 };
-
-// Workspace layout for a window of K controls, N shooting states, S
-// segments, n_u u-cost rows, n_all terminal rows, n_ls line-search trials
-// and `lanes` lanes per instance. Trials run P at a time, as many as there
-// are lanes for all their segments (at least one). Mirrored by
-// ops/fused.py::workspace_reals.
-__host__ __device__ inline Layout make_layout(int K, int N, int S, int n_u,
-                                              int n_all, int n_ls,
-                                              int lanes) {
-  Layout L;
-  int o = N_SCALARS;
-  auto take = [&o](int n) { const int at = o; o += n; return at; };
-  L.p = take(NP);
-  L.xc = take(SD);
-  L.xs = take(SD * N);
-  L.u = take(K);
-  L.jx = take(S * SD * SD);
-  L.ju = take(K * SD);
-  L.defect = take(S * SD);
-  L.pin = take(SD);
-  L.M = take(SD * K);
-  L.m = take(SD);
-  L.small = take(N_SMALL * ALLMAX);
-  L.R = take(ALLMAX * ALLMAX);
-  L.ru = take(n_u);
-  L.g = take(K);
-  L.dinv = take(K);
-  L.sdinv = take(K);
-  L.du = take(K);
-  L.dxs = take(N * SD);
-  L.fo = take(K);
-  // Three uses of one region: the KKT solve's buffers (until du2), then
-  // what st_post hands to st_merit, then the line-search trials.
-  const int shared = o;
-  L.Y = take((n_all + 1) * K);
-  L.CiA = take(n_all * K);
-  L.Cig = take(K);
-  L.Gc = take(n_all * (K + n_all));
-  L.t1 = take(K);
-  L.t2 = take(K);
-  L.y2 = take(K);
-  const int solve_end = o;
-  o = shared;
-  L.jd = take(n_u);
-  L.pis = take(S * SD);
-  const int post_end = o;
-  L.P = lanes / S < 1 ? 1 : (lanes / S < n_ls ? lanes / S : n_ls);
-  L.trial = shared;
-  // xt, ua, |defects|, squared u-cost rows, phi, accept
-  L.trial_size = N * SD + K + S * SD + n_u + 2;
-  const int trial_end = shared + L.P * L.trial_size;
-  L.total = solve_end > trial_end ? solve_end : trial_end;
-  if (post_end > L.total) L.total = post_end;
-  return L;
-}
 
 // Reals of the per-block statics in shared memory: Q with row stride
 // K + 1, and eigs.
@@ -324,70 +243,6 @@ __host__ __device__ inline Statics<T> stage_statics(const FusedTensors<T>& t,
   for (int e = tid; e < K * K; e += nthreads) Q[(e / K) * ld + e % K] = t.Q[e];
   for (int k = tid; k < K; k += nthreads) eigs[k] = t.eigs[k];
   return Statics<T>{Q, eigs, t.Juc, ld};
-}
-
-// One instance: its configuration, the block's statics, its workspace.
-template <typename T>
-struct Inst {
-  const FusedArgs<T>& a;
-  const Statics<T>& st;
-  const Layout& L;
-  T* w;
-  __host__ __device__ Scalars<T>& sc() const {
-    return *reinterpret_cast<Scalars<T>*>(w);
-  }
-  __host__ __device__ T* at(int off) const { return w + off; }
-  __host__ __device__ T* small(int v) const {
-    return w + L.small + v * ALLMAX;
-  }
-  // Row r of M (the terminal row's coordinate), K reals.
-  __host__ __device__ const T* Arow(int r) const {
-    return w + L.M + a.row_coord[r] * a.K;
-  }
-  __host__ __device__ int n_all() const { return a.n_tc + a.n_t; }
-};
-
-// ------------------------------------------------------------ load / store
-template <typename T>
-__host__ __device__ inline void load_instance(const FusedTensors<T>& t,
-                                              const Inst<T>& I, int b,
-                                              int lane, int n) {
-  const FusedArgs<T>& a = I.a;
-  const int B = a.B;
-  for (int j = lane; j < NP; j += n) I.at(I.L.p)[j] = t.params[j * B + b];
-  for (int i = lane; i < SD; i += n) I.at(I.L.xc)[i] = t.xc[i * B + b];
-  for (int e = lane; e < SD * a.N; e += n) I.at(I.L.xs)[e] = t.xs[e * B + b];
-  for (int k = lane; k < a.K; k += n) I.at(I.L.u)[k] = t.u[k * B + b];
-  if (lane == 0) {
-    Scalars<T>& sc = I.sc();
-    sc.lam = t.lam[b];
-    sc.mu = t.mu[b];
-    sc.merit = t.merit[b];
-    sc.fo = t.fo[b];
-    sc.done = T(t.done[b]);
-    sc.term = T(t.term[b]);
-    sc.spt = t.spt[b];
-    sc.up = t.up[b];
-  }
-}
-
-template <typename T>
-__host__ __device__ inline void store_instance(const FusedTensors<T>& t,
-                                               const Inst<T>& I, int b,
-                                               int lane, int n) {
-  const FusedArgs<T>& a = I.a;
-  const int B = a.B;
-  for (int e = lane; e < SD * a.N; e += n) t.xs_o[e * B + b] = I.at(I.L.xs)[e];
-  for (int k = lane; k < a.K; k += n) t.u_o[k * B + b] = I.at(I.L.u)[k];
-  if (lane == 0) {
-    const Scalars<T>& sc = I.sc();
-    t.lam_o[b] = sc.lam;
-    t.mu_o[b] = sc.mu;
-    t.merit_o[b] = sc.merit;
-    t.fo_o[b] = sc.fo;
-    t.done_o[b] = int(sc.done);
-    t.term_o[b] = int(sc.term);
-  }
 }
 
 template <typename T>
@@ -482,11 +337,189 @@ __host__ __device__ inline void segment_rollout_with_jac_acc(
   for (int i = 0; i < SD; ++i) x_end[i] = x[i];
 }
 
+// alpha of trial t: 1, 1/2, 1/4, ... (exact).
+template <typename T>
+__host__ __device__ inline T trial_alpha(int t) {
+  T al = T(1);
+  for (int j = 0; j < t; ++j) al *= T(0.5);
+  return al;
+}
+
+// ------------------------------------------------------------- the solve
+// Profile indices of steps (a -DFUSED_PROFILE build of fused_iteration.cu).
+constexpr int PROFILE_FROZEN = 96;
+constexpr int PROFILE_NONE = 128;
+
+// ------------------------------------------------------- the model body
+// Everything that depends on the model: its state and parameter counts,
+// its terminal rows (at most one per state coordinate,
+// cartpole_tpu/mpc/problem.py:252-257), the workspace layout they give,
+// and its generated dynamics cores. The members are not indented.
+template <typename Model>
+struct Body {
+static constexpr int SD = Model::SD;
+static constexpr int NP = Model::NP;
+static constexpr int ALLMAX = Model::SD;  // terminal rows
+
+// One RK4 step (no Jacobians) followed by the angle wrap; x updated in place.
+template <typename T>
+__host__ __device__ static inline void rk4_step(const FusedArgs<T>& a,
+                                                const T* p, T* x, T u) {
+  T k1[SD], k2[SD], k3[SD], k4[SD], xt[SD];
+  Model::core(p, x, u, k1);
+  for (int i = 0; i < SD; ++i) xt[i] = x[i] + a.h_half * k1[i];
+  Model::core(p, xt, u, k2);
+  for (int i = 0; i < SD; ++i) xt[i] = x[i] + a.h_half * k2[i];
+  Model::core(p, xt, u, k3);
+  for (int i = 0; i < SD; ++i) xt[i] = x[i] + a.dt * k3[i];
+  Model::core(p, xt, u, k4);
+  for (int i = 0; i < SD; ++i)
+    x[i] = wrap(a, i, x[i] + a.h_sixth * (k1[i] + T(2) * k2[i] +
+                                          T(2) * k3[i] + k4[i]));
+}
+
+// (T^T T)^{-1} b via the R factor (row-major, stride ALLMAX): R^T y = b,
+// then R x = y.
+template <typename T>
+__host__ __device__ static inline void schur_solve(const T* R, int n,
+                                                   const T* b, T* x) {
+  T y[ALLMAX];
+  for (int i = 0; i < n; ++i) {
+    T acc = b[i];
+    for (int k = 0; k < i; ++k) acc = acc - R[k * ALLMAX + i] * y[k];
+    y[i] = acc / R[i * ALLMAX + i];
+  }
+  for (int i = n - 1; i >= 0; --i) {
+    T acc = y[i];
+    for (int k = i + 1; k < n; ++k) acc = acc - R[i * ALLMAX + k] * x[k];
+    x[i] = acc / R[i * ALLMAX + i];
+  }
+}
+
+// Workspace layout for a window of K controls, N shooting states, S
+// segments, n_u u-cost rows, n_all terminal rows, n_ls line-search trials
+// and `lanes` lanes per instance. Trials run P at a time, as many as there
+// are lanes for all their segments (at least one). Mirrored by
+// ops/fused.py::workspace_reals.
+__host__ __device__ static inline Layout make_layout(int K, int N, int S,
+                                                     int n_u, int n_all,
+                                                     int n_ls, int lanes) {
+  Layout L;
+  int o = N_SCALARS;
+  auto take = [&o](int n) { const int at = o; o += n; return at; };
+  L.p = take(NP);
+  L.xc = take(SD);
+  L.xs = take(SD * N);
+  L.u = take(K);
+  L.jx = take(S * SD * SD);
+  L.ju = take(K * SD);
+  L.defect = take(S * SD);
+  L.pin = take(SD);
+  L.M = take(SD * K);
+  L.m = take(SD);
+  L.small = take(N_SMALL * ALLMAX);
+  L.R = take(ALLMAX * ALLMAX);
+  L.ru = take(n_u);
+  L.g = take(K);
+  L.dinv = take(K);
+  L.sdinv = take(K);
+  L.du = take(K);
+  L.dxs = take(N * SD);
+  L.fo = take(K);
+  // Three uses of one region: the KKT solve's buffers (until du2), then
+  // what st_post hands to st_merit, then the line-search trials.
+  const int shared = o;
+  L.Y = take((n_all + 1) * K);
+  L.CiA = take(n_all * K);
+  L.Cig = take(K);
+  L.Gc = take(n_all * (K + n_all));
+  L.t1 = take(K);
+  L.t2 = take(K);
+  L.y2 = take(K);
+  const int solve_end = o;
+  o = shared;
+  L.jd = take(n_u);
+  L.pis = take(S * SD);
+  const int post_end = o;
+  L.P = lanes / S < 1 ? 1 : (lanes / S < n_ls ? lanes / S : n_ls);
+  L.trial = shared;
+  // xt, ua, |defects|, squared u-cost rows, phi, accept
+  L.trial_size = N * SD + K + S * SD + n_u + 2;
+  const int trial_end = shared + L.P * L.trial_size;
+  L.total = solve_end > trial_end ? solve_end : trial_end;
+  if (post_end > L.total) L.total = post_end;
+  return L;
+}
+
+// One instance: its configuration, the block's statics, its workspace.
+template <typename T>
+struct Inst {
+  const FusedArgs<T>& a;
+  const Statics<T>& st;
+  const Layout& L;
+  T* w;
+  __host__ __device__ Scalars<T>& sc() const {
+    return *reinterpret_cast<Scalars<T>*>(w);
+  }
+  __host__ __device__ T* at(int off) const { return w + off; }
+  __host__ __device__ T* small(int v) const {
+    return w + L.small + v * ALLMAX;
+  }
+  // Row r of M (the terminal row's coordinate), K reals.
+  __host__ __device__ const T* Arow(int r) const {
+    return w + L.M + a.row_coord[r] * a.K;
+  }
+  __host__ __device__ int n_all() const { return a.n_tc + a.n_t; }
+};
+
+// ------------------------------------------------------------ load / store
+template <typename T>
+__host__ __device__ static inline void load_instance(const FusedTensors<T>& t,
+                                                     const Inst<T>& I, int b,
+                                                     int lane, int n) {
+  const FusedArgs<T>& a = I.a;
+  const int B = a.B;
+  for (int j = lane; j < NP; j += n) I.at(I.L.p)[j] = t.params[j * B + b];
+  for (int i = lane; i < SD; i += n) I.at(I.L.xc)[i] = t.xc[i * B + b];
+  for (int e = lane; e < SD * a.N; e += n) I.at(I.L.xs)[e] = t.xs[e * B + b];
+  for (int k = lane; k < a.K; k += n) I.at(I.L.u)[k] = t.u[k * B + b];
+  if (lane == 0) {
+    Scalars<T>& sc = I.sc();
+    sc.lam = t.lam[b];
+    sc.mu = t.mu[b];
+    sc.merit = t.merit[b];
+    sc.fo = t.fo[b];
+    sc.done = T(t.done[b]);
+    sc.term = T(t.term[b]);
+    sc.spt = t.spt[b];
+    sc.up = t.up[b];
+  }
+}
+
+template <typename T>
+__host__ __device__ static inline void store_instance(const FusedTensors<T>& t,
+                                                      const Inst<T>& I, int b,
+                                                      int lane, int n) {
+  const FusedArgs<T>& a = I.a;
+  const int B = a.B;
+  for (int e = lane; e < SD * a.N; e += n) t.xs_o[e * B + b] = I.at(I.L.xs)[e];
+  for (int k = lane; k < a.K; k += n) t.u_o[k * B + b] = I.at(I.L.u)[k];
+  if (lane == 0) {
+    const Scalars<T>& sc = I.sc();
+    t.lam_o[b] = sc.lam;
+    t.mu_o[b] = sc.mu;
+    t.merit_o[b] = sc.merit;
+    t.fo_o[b] = sc.fo;
+    t.done_o[b] = int(sc.done);
+    t.term_o[b] = int(sc.term);
+  }
+}
+
 // ------------------------------------------------------------------ stages
 // Segment linearization (lanes over segments), defects and pins.
 template <typename T>
-__host__ __device__ inline void st_linearize(const Inst<T>& I, int lane,
-                                             int n) {
+__host__ __device__ static inline void st_linearize(const Inst<T>& I, int lane,
+                                                    int n) {
   const FusedArgs<T>& a = I.a;
   const int N = a.N, S = a.S, sp = a.sp;
   const T* xs = I.at(I.L.xs);
@@ -494,7 +527,7 @@ __host__ __device__ inline void st_linearize(const Inst<T>& I, int lane,
     T p[NP], x0[SD], xe[SD];
     for (int j = 0; j < NP; ++j) p[j] = I.at(I.L.p)[j];
     for (int i = 0; i < SD; ++i) x0[i] = xs[i * N + s];
-    segment_rollout_with_jac_acc<segjac::SingleCartPole>(
+    segment_rollout_with_jac_acc<Model>(
         p, x0, I.at(I.L.u) + s * sp, sp, a.dt, a.h_half, a.h_sixth,
         a.angle_mask, xe, I.at(I.L.jx) + s * SD * SD,
         I.at(I.L.ju) + s * sp * SD);
@@ -510,8 +543,8 @@ __host__ __device__ inline void st_linearize(const Inst<T>& I, int lane,
 // (column K is the affine part m); the u-cost rows; the spectral scales.
 // Column k is Ju_k carried through the Jacobians of the later segments.
 template <typename T>
-__host__ __device__ inline void st_condense(const Inst<T>& I, int lane,
-                                            int n) {
+__host__ __device__ static inline void st_condense(const Inst<T>& I, int lane,
+                                                   int n) {
   const FusedArgs<T>& a = I.a;
   const int K = a.K, S = a.S, sp = a.sp;
   const T* jx = I.at(I.L.jx);
@@ -553,8 +586,8 @@ __host__ __device__ inline void st_condense(const Inst<T>& I, int lane,
 // Terminal rows (one lane); g = Juc^T r_u (lanes over k); Y_r = Q^T A_r
 // for every terminal row (lanes over (r, k)).
 template <typename T>
-__host__ __device__ inline void st_project(const Inst<T>& I, int lane,
-                                           int n) {
+__host__ __device__ static inline void st_project(const Inst<T>& I, int lane,
+                                                  int n) {
   const FusedArgs<T>& a = I.a;
   const int K = a.K, N = a.N, ld = I.st.ld, n_all = I.n_all();
   const Scalars<T>& sc = I.sc();
@@ -593,8 +626,8 @@ __host__ __device__ inline void st_project(const Inst<T>& I, int lane,
 // Y_g = Q^T g (lanes over k); C^{-1} A_r = Q (dinv .* Y_r) and the Schur
 // factor column Q (sqrt(dinv) .* Y_r) over sqrt(D) e_r (lanes over (r, k)).
 template <typename T>
-__host__ __device__ inline void st_spectral(const Inst<T>& I, int lane,
-                                            int n) {
+__host__ __device__ static inline void st_spectral(const Inst<T>& I, int lane,
+                                                   int n) {
   const FusedArgs<T>& a = I.a;
   const int K = a.K, ld = I.st.ld, n_all = I.n_all(), GL = K + n_all;
   const T* Q = I.st.Q;
@@ -629,7 +662,8 @@ __host__ __device__ inline void st_spectral(const Inst<T>& I, int lane,
 // is its negative), and the norm of each column of the stacked Schur factor
 // before the QR (lanes over columns).
 template <typename T>
-__host__ __device__ inline void st_cig(const Inst<T>& I, int lane, int n) {
+__host__ __device__ static inline void st_cig(const Inst<T>& I, int lane,
+                                              int n) {
   const FusedArgs<T>& a = I.a;
   const int K = a.K, ld = I.st.ld, n_all = I.n_all(), GL = K + n_all;
   const T* yg = I.at(I.L.Y) + n_all * K;
@@ -652,8 +686,8 @@ __host__ __device__ inline void st_cig(const Inst<T>& I, int lane, int n) {
 // j against column i < j in pass `pass`: h = g_i . v_j (one lane), and
 // R_ij accumulates it.
 template <typename T>
-__host__ __device__ inline void st_qr_dot(const Inst<T>& I, int lane, int i,
-                                          int j, int pass) {
+__host__ __device__ static inline void st_qr_dot(const Inst<T>& I, int lane,
+                                                 int i, int j, int pass) {
   if (lane != 0) return;
   const int GL = I.a.K + I.n_all();
   const T* gi = I.at(I.L.Gc) + i * GL;
@@ -667,8 +701,8 @@ __host__ __device__ inline void st_qr_dot(const Inst<T>& I, int lane, int i,
 
 // v_j -= h g_i (lanes over rows).
 template <typename T>
-__host__ __device__ inline void st_qr_axpy(const Inst<T>& I, int lane, int n,
-                                           int i, int j) {
+__host__ __device__ static inline void st_qr_axpy(const Inst<T>& I, int lane,
+                                                  int n, int i, int j) {
   const int GL = I.a.K + I.n_all();
   const T* gi = I.at(I.L.Gc) + i * GL;
   T* v = I.at(I.L.Gc) + j * GL;
@@ -678,7 +712,8 @@ __host__ __device__ inline void st_qr_axpy(const Inst<T>& I, int lane, int n,
 
 // R_jj = max(|v_j|, eps |v_j before the QR| + 1e-30) (one lane).
 template <typename T>
-__host__ __device__ inline void st_qr_norm(const Inst<T>& I, int lane, int j) {
+__host__ __device__ static inline void st_qr_norm(const Inst<T>& I, int lane,
+                                                  int j) {
   if (lane != 0) return;
   const int GL = I.a.K + I.n_all();
   const T* v = I.at(I.L.Gc) + j * GL;
@@ -690,8 +725,8 @@ __host__ __device__ inline void st_qr_norm(const Inst<T>& I, int lane, int j) {
 
 // g_j = v_j / R_jj (lanes over rows).
 template <typename T>
-__host__ __device__ inline void st_qr_scale(const Inst<T>& I, int lane, int n,
-                                            int j) {
+__host__ __device__ static inline void st_qr_scale(const Inst<T>& I, int lane,
+                                                   int n, int j) {
   const int GL = I.a.K + I.n_all();
   T* v = I.at(I.L.Gc) + j * GL;
   const T nrm = I.at(I.L.R)[j * ALLMAX + j];
@@ -700,7 +735,8 @@ __host__ __device__ inline void st_qr_scale(const Inst<T>& I, int lane, int n,
 
 // A_r . x for terminal row r.
 template <typename T>
-__host__ __device__ inline T arow_dot(const Inst<T>& I, int r, const T* x) {
+__host__ __device__ static inline T arow_dot(const Inst<T>& I, int r,
+                                             const T* x) {
   const T* A = I.Arow(r);
   T acc = T(0);
   for (int k = 0; k < I.a.K; ++k) acc += A[k] * x[k];
@@ -709,22 +745,24 @@ __host__ __device__ inline T arow_dot(const Inst<T>& I, int r, const T* x) {
 
 // rhs_r = b_r - A_r . C^{-1} g (lanes over r).
 template <typename T>
-__host__ __device__ inline void st_rhs1(const Inst<T>& I, int lane, int n) {
+__host__ __device__ static inline void st_rhs1(const Inst<T>& I, int lane,
+                                               int n) {
   for (int r = lane; r < I.n_all(); r += n)
     I.small(RHS)[r] = I.small(B_ALL)[r] - arow_dot(I, r, I.at(I.L.Cig));
 }
 
 // One Schur solve (one lane): into MU, or into E for the refinement.
 template <typename T>
-__host__ __device__ inline void st_schur(const Inst<T>& I, int lane,
-                                         SmallVec out) {
+__host__ __device__ static inline void st_schur(const Inst<T>& I, int lane,
+                                                SmallVec out) {
   if (lane == 0)
     schur_solve(I.at(I.L.R), I.n_all(), I.small(RHS), I.small(out));
 }
 
 // du = -(C^{-1} g + C^{-1} A^T mu); t1 = A^T mu (lanes over k).
 template <typename T>
-__host__ __device__ inline void st_du1(const Inst<T>& I, int lane, int n) {
+__host__ __device__ static inline void st_du1(const Inst<T>& I, int lane,
+                                              int n) {
   const int K = I.a.K, n_all = I.n_all();
   const T* mu = I.small(MU);
   const T* CiA = I.at(I.L.CiA);
@@ -740,8 +778,8 @@ __host__ __device__ inline void st_du1(const Inst<T>& I, int lane, int n) {
 // y2 = (Q^T x) .* s, with s = eigs + lam when scale_eigs, else dinv (lanes
 // over k): the first half of an eigenbasis product.
 template <typename T>
-__host__ __device__ inline void st_qt(const Inst<T>& I, int lane, int n,
-                                      const T* x, bool scale_eigs) {
+__host__ __device__ static inline void st_qt(const Inst<T>& I, int lane, int n,
+                                             const T* x, bool scale_eigs) {
   const int K = I.a.K, ld = I.st.ld;
   const T lam = I.sc().lam;
   for (int k = lane; k < K; k += n) {
@@ -754,7 +792,7 @@ __host__ __device__ inline void st_qt(const Inst<T>& I, int lane, int n,
 
 // Q y2 as row k (the second half of an eigenbasis product).
 template <typename T>
-__host__ __device__ inline T q_row(const Inst<T>& I, int k) {
+__host__ __device__ static inline T q_row(const Inst<T>& I, int k) {
   const int K = I.a.K, ld = I.st.ld;
   const T* y2 = I.at(I.L.y2);
   T acc = T(0);
@@ -765,8 +803,8 @@ __host__ __device__ inline T q_row(const Inst<T>& I, int k) {
 // Residuals of the augmented system: res_d = -g - (C du + A^T mu) into t2
 // (lanes over k), res_c (lanes over r, after the k).
 template <typename T>
-__host__ __device__ inline void st_residuals(const Inst<T>& I, int lane,
-                                             int n) {
+__host__ __device__ static inline void st_residuals(const Inst<T>& I, int lane,
+                                                    int n) {
   const FusedArgs<T>& a = I.a;
   const int K = a.K;
   for (int idx = lane; idx < K + I.n_all(); idx += n) {
@@ -784,13 +822,15 @@ __host__ __device__ inline void st_residuals(const Inst<T>& I, int lane,
 
 // t1 = C^{-1} res_d = Q y2 (lanes over k).
 template <typename T>
-__host__ __device__ inline void st_cird(const Inst<T>& I, int lane, int n) {
+__host__ __device__ static inline void st_cird(const Inst<T>& I, int lane,
+                                               int n) {
   for (int k = lane; k < I.a.K; k += n) I.at(I.L.t1)[k] = q_row(I, k);
 }
 
 // rhs_r = A_r . C^{-1} res_d - res_c (lanes over r).
 template <typename T>
-__host__ __device__ inline void st_rhs2(const Inst<T>& I, int lane, int n) {
+__host__ __device__ static inline void st_rhs2(const Inst<T>& I, int lane,
+                                               int n) {
   for (int r = lane; r < I.n_all(); r += n)
     I.small(RHS)[r] = arow_dot(I, r, I.at(I.L.t1)) - I.small(RES_C)[r];
 }
@@ -798,7 +838,8 @@ __host__ __device__ inline void st_rhs2(const Inst<T>& I, int lane, int n) {
 // The refined step du += C^{-1} res_d - C^{-1} A^T e (lanes over k) and
 // mu += e (lane 0).
 template <typename T>
-__host__ __device__ inline void st_du2(const Inst<T>& I, int lane, int n) {
+__host__ __device__ static inline void st_du2(const Inst<T>& I, int lane,
+                                              int n) {
   const int K = I.a.K, n_all = I.n_all();
   const T* e = I.small(E);
   const T* CiA = I.at(I.L.CiA);
@@ -813,7 +854,7 @@ __host__ __device__ inline void st_du2(const Inst<T>& I, int lane, int n) {
 
 // State-step expansion by the forward recursion.
 template <typename T>
-__host__ __device__ inline void expand_dxs(const Inst<T>& I) {
+__host__ __device__ static inline void expand_dxs(const Inst<T>& I) {
   const int S = I.a.S, sp = I.a.sp;
   T* dxs = I.at(I.L.dxs);
   const T* jx = I.at(I.L.jx);
@@ -833,7 +874,7 @@ __host__ __device__ inline void expand_dxs(const Inst<T>& I) {
 
 // pi <- Jx_s^T pi.
 template <typename T>
-__host__ __device__ inline void adjoint_step(const T* J, T* pi) {
+__host__ __device__ static inline void adjoint_step(const T* J, T* pi) {
   T pn[SD];
   for (int j = 0; j < SD; ++j) {
     T acc = T(0);
@@ -848,7 +889,8 @@ __host__ __device__ inline void adjoint_step(const T* J, T* pi) {
 // the estimate nu_inf; `which` 1 starts from the pre-step residual
 // multipliers and keeps pi at each segment for the first-order diagnostic.
 template <typename T>
-__host__ __device__ inline void adjoint_pass(const Inst<T>& I, int which) {
+__host__ __device__ static inline void adjoint_pass(const Inst<T>& I,
+                                                    int which) {
   const FusedArgs<T>& a = I.a;
   const T* mu = I.small(MU);
   const T* r_term = I.small(R_TERM);
@@ -881,7 +923,7 @@ __host__ __device__ inline void adjoint_pass(const Inst<T>& I, int which) {
 
 // The pre-step merit's cost and its L1 and max constraint violations.
 template <typename T>
-__host__ __device__ inline void cost_and_violation(const Inst<T>& I) {
+__host__ __device__ static inline void cost_and_violation(const Inst<T>& I) {
   const FusedArgs<T>& a = I.a;
   const T* r_term = I.small(R_TERM);
   const T* c_term = I.small(C_TERM);
@@ -916,7 +958,8 @@ __host__ __device__ inline void cost_and_violation(const Inst<T>& I) {
 // passes (lanes 0 and 1), the state step (lane 2), cost and violation
 // (lane 3).
 template <typename T>
-__host__ __device__ inline void st_post(const Inst<T>& I, int lane, int n) {
+__host__ __device__ static inline void st_post(const Inst<T>& I, int lane,
+                                               int n) {
   const int K = I.a.K;
   const T* du = I.at(I.L.du);
   for (int r = lane; r < I.a.n_u; r += n) {
@@ -932,7 +975,8 @@ __host__ __device__ inline void st_post(const Inst<T>& I, int lane, int n) {
 // The first-order diagnostic's terms |g_k + Ju_k . pi_s(k)| (lanes over k);
 // (J^T r) . dz, qp_ok and the merit's terms for the line search (lane 0).
 template <typename T>
-__host__ __device__ inline void st_merit(const Inst<T>& I, int lane, int n) {
+__host__ __device__ static inline void st_merit(const Inst<T>& I, int lane,
+                                                int n) {
   const FusedArgs<T>& a = I.a;
   const int K = a.K;
   for (int k = lane; k < K; k += n) {
@@ -973,19 +1017,12 @@ __host__ __device__ inline void st_merit(const Inst<T>& I, int lane, int n) {
   sc.phi_sel = T(0);
 }
 
-// alpha of trial t: 1, 1/2, 1/4, ... (exact).
-template <typename T>
-__host__ __device__ inline T trial_alpha(int t) {
-  T al = T(1);
-  for (int j = 0; j < t; ++j) al *= T(0.5);
-  return al;
-}
-
 // Retract trials t0 .. t0 + nq - 1 of the line search: shooting states and
 // controls at alpha (lanes over (trial, entry)).
 template <typename T>
-__host__ __device__ inline void st_trial_retract(const Inst<T>& I, int lane,
-                                                 int n, int t0, int nq) {
+__host__ __device__ static inline void st_trial_retract(const Inst<T>& I,
+                                                        int lane, int n, int t0,
+                                                        int nq) {
   const FusedArgs<T>& a = I.a;
   const int N = a.N, K = a.K, per = N * SD + K;
   for (int idx = lane; idx < nq * per; idx += n) {
@@ -1009,8 +1046,9 @@ __host__ __device__ inline void st_trial_retract(const Inst<T>& I, int lane,
 // keep |defect| per coordinate; square the trial's u-cost rows (lanes over
 // (trial, row)).
 template <typename T>
-__host__ __device__ inline void st_trial_rollout(const Inst<T>& I, int lane,
-                                                 int n, int nq) {
+__host__ __device__ static inline void st_trial_rollout(const Inst<T>& I,
+                                                        int lane, int n,
+                                                        int nq) {
   const FusedArgs<T>& a = I.a;
   const int N = a.N, S = a.S, sp = a.sp, K = a.K;
   for (int idx = lane; idx < nq * S; idx += n) {
@@ -1035,8 +1073,9 @@ __host__ __device__ inline void st_trial_rollout(const Inst<T>& I, int lane,
 
 // The merit of each trial and its Armijo test (lanes over trials).
 template <typename T>
-__host__ __device__ inline void st_trial_merit(const Inst<T>& I, int lane,
-                                               int n, int t0, int nq) {
+__host__ __device__ static inline void st_trial_merit(const Inst<T>& I,
+                                                      int lane, int n, int t0,
+                                                      int nq) {
   const FusedArgs<T>& a = I.a;
   const int N = a.N, S = a.S, K = a.K;
   const Scalars<T>& sc = I.sc();
@@ -1076,8 +1115,9 @@ __host__ __device__ inline void st_trial_merit(const Inst<T>& I, int lane,
 
 // The first accepted trial in alpha order wins (one lane).
 template <typename T>
-__host__ __device__ inline void st_trial_select(const Inst<T>& I, int lane,
-                                                int t0, int nq) {
+__host__ __device__ static inline void st_trial_select(const Inst<T>& I,
+                                                       int lane, int t0,
+                                                       int nq) {
   if (lane != 0) return;
   Scalars<T>& sc = I.sc();
   for (int q = 0; q < nq && sc.found == T(0); ++q) {
@@ -1093,9 +1133,9 @@ __host__ __device__ inline void st_trial_select(const Inst<T>& I, int lane,
 // Acceptance, the LM lambda update, termination and this iteration's
 // traces (one lane).
 template <typename T>
-__host__ __device__ inline void st_finish(const FusedTensors<T>& t,
-                                          const Inst<T>& I, int lane,
-                                          int o) {
+__host__ __device__ static inline void st_finish(const FusedTensors<T>& t,
+                                                 const Inst<T>& I, int lane,
+                                                 int o) {
   if (lane != 0) return;
   const FusedArgs<T>& a = I.a;
   Scalars<T>& sc = I.sc();
@@ -1135,7 +1175,8 @@ __host__ __device__ inline void st_finish(const FusedTensors<T>& t,
 
 // Re-retract the carry at the accepted alpha (lanes over entries).
 template <typename T>
-__host__ __device__ inline void st_accept(const Inst<T>& I, int lane, int n) {
+__host__ __device__ static inline void st_accept(const Inst<T>& I, int lane,
+                                                 int n) {
   const FusedArgs<T>& a = I.a;
   const int N = a.N, K = a.K;
   const T al = I.sc().alpha_used;
@@ -1149,11 +1190,6 @@ __host__ __device__ inline void st_accept(const Inst<T>& I, int lane, int n) {
   }
 }
 
-// ------------------------------------------------------------- the solve
-// Profile indices of steps (a -DFUSED_PROFILE build of fused_iteration.cu).
-constexpr int PROFILE_FROZEN = 96;
-constexpr int PROFILE_NONE = 128;
-
 // n_iter iterations of instance b with workspace w. `ex.step(f)` runs
 // f(lane, n_lanes) on every lane of the instance and then synchronises
 // them; the control flow between steps reads only the workspace's scalars,
@@ -1161,11 +1197,11 @@ constexpr int PROFILE_NONE = 128;
 // a profiling build: the steps of an active iteration from 0, a frozen
 // iteration's from PROFILE_FROZEN, and the final store PROFILE_NONE.
 template <typename T, typename Exec>
-__host__ __device__ inline void solve_instance(const FusedTensors<T>& t,
-                                               const FusedArgs<T>& a,
-                                               const Statics<T>& st,
-                                               const Layout& L, T* w, int b,
-                                               Exec& ex) {
+__host__ __device__ static inline void solve_instance(const FusedTensors<T>& t,
+                                                      const FusedArgs<T>& a,
+                                                      const Statics<T>& st,
+                                                      const Layout& L, T* w,
+                                                      int b, Exec& ex) {
   const Inst<T> I{a, st, L, w};
   const Scalars<T>& sc = I.sc();
   ex.step([&](int lane, int n) { load_instance(t, I, b, lane, n); });
@@ -1224,5 +1260,6 @@ __host__ __device__ inline void solve_instance(const FusedTensors<T>& t,
   ex.mark(PROFILE_NONE);
   ex.step([&](int lane, int n) { store_instance(t, I, b, lane, n); });
 }
+};
 
 }  // namespace fused

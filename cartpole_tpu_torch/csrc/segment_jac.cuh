@@ -9,26 +9,87 @@
 // PyTorch version: ops/pallas_kernels.py::segment_jac_batch_last_reference.
 //
 // The dynamics model is a compile-time parameter (the reference passes the
-// generated function gen_jac); only the single cart-pole is compiled in.
-// Step constants and the angle mask are plain arguments. Every function is
+// generated function gen_jac): the single, double and triple cart-pole, each
+// a struct of its state and parameter counts and its generated cores. Step
+// constants and the angle mask are plain arguments. Every function is
 // __host__ __device__ and templated on the real type T, so host_check.cc
 // compiles the same body with g++.
 #pragma once
 
+#include "double_dynamics.cuh"
 #include "single_dynamics.cuh"
+#include "triple_dynamics.cuh"
 
 namespace segjac {
 
 // The single cart-pole of models/_single_gen.py.
 struct SingleCartPole {
+  // The model's id in the C interface, and its name: ops/_build.py lists
+  // the names in id order (KERNEL_MODELS) and checks them against
+  // model_name() when it loads a library.
+  static constexpr int ID = 0;
+  static constexpr const char* NAME = "single";
   static constexpr int SD = cartpole_gen::STATE_DIM;
   static constexpr int NP = cartpole_gen::N_PARAMS;
+  template <typename T>
+  __host__ __device__ static void core(const T* p, const T* x, T u, T* xdot) {
+    cartpole_gen::single_dynamics_core(p, x, u, xdot);
+  }
   template <typename T>
   __host__ __device__ static void jac(const T* p, const T* x, T u, T* xdot,
                                       T* Jx, T* Ju) {
     cartpole_gen::single_dynamics_jac_core(p, x, u, xdot, Jx, Ju);
   }
 };
+
+// The double cart-pole of models/_double_gen.py.
+struct DoubleCartPole {
+  static constexpr int ID = 1;
+  static constexpr const char* NAME = "double";
+  static constexpr int SD = cartpole_gen::double_pole::STATE_DIM;
+  static constexpr int NP = cartpole_gen::double_pole::N_PARAMS;
+  template <typename T>
+  __host__ __device__ static void core(const T* p, const T* x, T u, T* xdot) {
+    cartpole_gen::double_pole::double_dynamics_core(p, x, u, xdot);
+  }
+  template <typename T>
+  __host__ __device__ static void jac(const T* p, const T* x, T u, T* xdot,
+                                      T* Jx, T* Ju) {
+    cartpole_gen::double_pole::double_dynamics_jac_core(p, x, u, xdot, Jx,
+                                                        Ju);
+  }
+};
+
+// The triple cart-pole of models/_triple_gen.py.
+struct TripleCartPole {
+  static constexpr int ID = 2;
+  static constexpr const char* NAME = "triple";
+  static constexpr int SD = cartpole_gen::triple_pole::STATE_DIM;
+  static constexpr int NP = cartpole_gen::triple_pole::N_PARAMS;
+  template <typename T>
+  __host__ __device__ static void core(const T* p, const T* x, T u, T* xdot) {
+    cartpole_gen::triple_pole::triple_dynamics_core(p, x, u, xdot);
+  }
+  template <typename T>
+  __host__ __device__ static void jac(const T* p, const T* x, T u, T* xdot,
+                                      T* Jx, T* Ju) {
+    cartpole_gen::triple_pole::triple_dynamics_jac_core(p, x, u, xdot, Jx,
+                                                        Ju);
+  }
+};
+
+// The largest state dimension of a compiled model.
+constexpr int SD_MAX = TripleCartPole::SD;
+
+// The name of the model with id `model`; nullptr past the last.
+inline const char* model_name(int model) {
+  switch (model) {
+    case SingleCartPole::ID: return SingleCartPole::NAME;
+    case DoubleCartPole::ID: return DoubleCartPole::NAME;
+    case TripleCartPole::ID: return TripleCartPole::NAME;
+    default: return nullptr;
+  }
+}
 
 // Compile-time maximum of the steps per segment; the wrapper raises beyond.
 constexpr int SPMAX = 16;

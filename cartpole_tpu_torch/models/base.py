@@ -1,7 +1,6 @@
-"""Model descriptors (counterpart of ``cartpole_tpu/models/base.py``).
-
-Only the single cart-pole is registered in the port so far; the double and
-triple models are queued in ROADMAP.md.
+"""Model descriptors (counterpart of ``cartpole_tpu/models/base.py``): the
+single, double and triple cart-pole, each described once; every layer of
+the port is generic over them.
 """
 
 from __future__ import annotations
@@ -9,10 +8,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Tuple
 
+from . import double as _double
 from . import single as _single
-from .params import SingleCartPoleParams
+from . import triple as _triple
+from .params import (DoubleCartPoleParams, SingleCartPoleParams,
+                     TripleCartPoleParams)
 
-__all__ = ["CartPoleModel", "SINGLE_CARTPOLE", "get_model"]
+__all__ = ["CartPoleModel", "SINGLE_CARTPOLE", "DOUBLE_CARTPOLE",
+           "TRIPLE_CARTPOLE", "get_model"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,12 +28,15 @@ class CartPoleModel:
     angle_indices: Tuple[int, ...]
     #: Constructor for the parameter dataclass.
     params_type: type
-    #: f(params, x, u, f_base=None, f_mass=None) -> x_dot, packed (sd, ...).
+    #: f(params, x, u, f_base=None, f_mass=None, ...) -> x_dot, packed
+    #: (sd, ...); one optional (fx, fy) force per link mass after f_mass.
     dynamics: Callable[..., Any]
     #: f(params, x_rows, u) -> x_dot_rows (tuples of per-coordinate tensors).
     dynamics_core: Callable[..., Any]
     #: fj(params, x_rows, u) -> (x_dot_rows, J_x_rows, J_u_rows).
     dynamics_jac_core: Callable[..., Any]
+    #: E(params, x) -> total mechanical energy of packed states.
+    energy: Callable[..., Any]
 
 
 SINGLE_CARTPOLE = CartPoleModel(
@@ -41,13 +47,38 @@ SINGLE_CARTPOLE = CartPoleModel(
     dynamics=_single.single_cartpole_dynamics,
     dynamics_core=_single.single_cartpole_dynamics_core,
     dynamics_jac_core=_single.single_cartpole_dynamics_jac_core,
+    energy=_single.single_cartpole_energy,
 )
 
-_REGISTRY = {m.name: m for m in (SINGLE_CARTPOLE,)}
+DOUBLE_CARTPOLE = CartPoleModel(
+    name="double",
+    state_dim=_double.STATE_DIM,
+    angle_indices=_double.ANGLE_INDICES,
+    params_type=DoubleCartPoleParams,
+    dynamics=_double.double_cartpole_dynamics,
+    dynamics_core=_double.double_cartpole_dynamics_core,
+    dynamics_jac_core=_double.double_cartpole_dynamics_jac_core,
+    energy=_double.double_cartpole_energy,
+)
+
+TRIPLE_CARTPOLE = CartPoleModel(
+    name="triple",
+    state_dim=_triple.STATE_DIM,
+    angle_indices=_triple.ANGLE_INDICES,
+    params_type=TripleCartPoleParams,
+    dynamics=_triple.triple_cartpole_dynamics,
+    dynamics_core=_triple.triple_cartpole_dynamics_core,
+    dynamics_jac_core=_triple.triple_cartpole_dynamics_jac_core,
+    energy=_triple.triple_cartpole_energy,
+)
+
+_REGISTRY = {m.name: m for m in (SINGLE_CARTPOLE, DOUBLE_CARTPOLE,
+                                 TRIPLE_CARTPOLE)}
 
 
 def get_model(name: str) -> CartPoleModel:
-    """Look up a model family by name (only ``"single"`` so far)."""
+    """Look up a model family by name: ``"single"``, ``"double"`` or
+    ``"triple"``."""
     try:
         return _REGISTRY[name]
     except KeyError:

@@ -1,9 +1,9 @@
-"""Dynamics parameters of the single cart-pole (counterpart of
+"""Dynamics parameters of the cart-pole models (counterpart of
 ``cartpole_tpu/models/params.py``).
 
 Every field is a tensor: 0-d for one plant shared by the batch, or ``(B,)``
 for per-instance plants. Field order is the order the generated dynamics
-take them in (``models/_single_gen.py``).
+take them in (``models/_<version>_gen.py``).
 """
 
 from __future__ import annotations
@@ -13,11 +13,35 @@ from typing import Any
 
 import torch
 
-__all__ = ["SingleCartPoleParams", "default_single_params"]
+__all__ = [
+    "SingleCartPoleParams",
+    "DoubleCartPoleParams",
+    "TripleCartPoleParams",
+    "default_single_params",
+    "default_double_params",
+    "default_triple_params",
+]
+
+
+class _Params:
+    """Field access shared by the parameter dataclasses."""
+
+    def as_dict(self) -> dict:
+        return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
+
+    def as_tuple(self) -> tuple:
+        """Fields in the generated dynamics' argument order."""
+        return tuple(getattr(self, f.name) for f in dataclasses.fields(self))
+
+    def to(self, dtype=None, device=None):
+        return type(self)(**{
+            k: torch.as_tensor(v, dtype=dtype, device=device)
+            for k, v in self.as_dict().items()
+        })
 
 
 @dataclasses.dataclass(frozen=True)
-class SingleCartPoleParams:
+class SingleCartPoleParams(_Params):
     """Physical parameters of the cart + single pole system."""
 
     m_b: Any = 1.0  #: Mass of the base / cart (kg).
@@ -30,18 +54,33 @@ class SingleCartPoleParams:
     x_s: Any = 0.8  #: Position of the boundary bumper springs (m).
     k_s: Any = 100.0  #: Bumper spring constant (N/m).
 
-    def as_dict(self) -> dict:
-        return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
 
-    def as_tuple(self) -> tuple:
-        """Fields in the generated dynamics' argument order."""
-        return tuple(getattr(self, f.name) for f in dataclasses.fields(self))
+@dataclasses.dataclass(frozen=True)
+class DoubleCartPoleParams(_Params):
+    """Physical parameters of the cart + two-link pole system (no friction,
+    drag or springs)."""
 
-    def to(self, dtype=None, device=None) -> "SingleCartPoleParams":
-        return SingleCartPoleParams(**{
-            k: torch.as_tensor(v, dtype=dtype, device=device)
-            for k, v in self.as_dict().items()
-        })
+    m_b: Any = 1.0  #: Mass of the base / cart (kg).
+    m_1: Any = 0.1  #: Point mass at the first link tip (kg).
+    m_2: Any = 0.1  #: Point mass at the second link tip (kg).
+    l_1: Any = 0.25  #: First link length (m).
+    l_2: Any = 0.25  #: Second link length (m).
+    g: Any = 9.81  #: Gravitational acceleration (m/s^2).
+
+
+@dataclasses.dataclass(frozen=True)
+class TripleCartPoleParams(_Params):
+    """Physical parameters of the cart + three-link pole chain (no
+    friction, drag or springs)."""
+
+    m_b: Any = 1.0  #: Mass of the base / cart (kg).
+    m_1: Any = 0.1  #: Point mass at the first link tip (kg).
+    m_2: Any = 0.1  #: Point mass at the second link tip (kg).
+    m_3: Any = 0.1  #: Point mass at the third link tip (kg).
+    l_1: Any = 0.25  #: First link length (m).
+    l_2: Any = 0.25  #: Second link length (m).
+    l_3: Any = 0.25  #: Third link length (m).
+    g: Any = 9.81  #: Gravitational acceleration (m/s^2).
 
 
 def default_single_params(dtype=torch.float32, device="cuda"
@@ -49,3 +88,15 @@ def default_single_params(dtype=torch.float32, device="cuda"
     """The nominal system of the reference closed-loop test, as 0-d
     tensors on ``device`` (the card unless the caller asks for the CPU)."""
     return SingleCartPoleParams().to(dtype=dtype, device=device)
+
+
+def default_double_params(dtype=torch.float32, device="cuda"
+                          ) -> DoubleCartPoleParams:
+    """The nominal double pole, as 0-d tensors on ``device``."""
+    return DoubleCartPoleParams().to(dtype=dtype, device=device)
+
+
+def default_triple_params(dtype=torch.float32, device="cuda"
+                          ) -> TripleCartPoleParams:
+    """The nominal triple pole, as 0-d tensors on ``device``."""
+    return TripleCartPoleParams().to(dtype=dtype, device=device)

@@ -20,6 +20,7 @@ __all__ = [
     "single_cartpole_dynamics",
     "single_cartpole_dynamics_core",
     "single_cartpole_dynamics_jac_core",
+    "single_cartpole_energy",
 ]
 
 STATE_DIM = 4
@@ -96,3 +97,17 @@ def single_cartpole_dynamics_jac_core(params: SingleCartPoleParams, x_rows,
     """Rows-out ``(x_dot, J_x, J_u)`` as nested tuples (constant entries are
     Python literals, so chain-rule products against them fold away)."""
     return _single_gen.single_dynamics_jac_core(params.as_tuple(), x_rows, u)
+
+
+def single_cartpole_energy(params: SingleCartPoleParams, x):
+    """Total mechanical energy T + V of packed states ``x`` ``(4, ...)``
+    (conserved when mu_b = c_d_1 = k_s = 0 with no control or external
+    force)."""
+    th, b_v, th_v = x[1], x[2], x[3]
+    m_b, m_1, l_1, g = params.m_b, params.m_1, params.l_1, params.g
+    s, c = torch.sin(th), torch.cos(th)
+    v1x = b_v - l_1 * s * th_v
+    v1y = l_1 * c * th_v
+    kinetic = 0.5 * m_b * b_v * b_v + 0.5 * m_1 * (v1x * v1x + v1y * v1y)
+    potential = m_1 * g * l_1 * s
+    return kinetic + potential

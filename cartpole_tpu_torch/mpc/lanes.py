@@ -714,10 +714,11 @@ def simulator_step_lanes(dynamics_params, x, dt: float, u, f_base=None,
                          f_mass=None, model=SINGLE_CARTPOLE,
                          internal_dt: float = 1.0e-3):
     """Plant substep integration, batch-last: ``x`` (sd, B), ``u`` (B,),
-    external forces ``f_base``/``f_mass`` ``(2, B)`` or ``(2,)``. Same 1 kHz
+    external forces ``f_base``/``f_mass`` ``(2, B)`` or ``(2,)`` at the base
+    and at the first (for the single model, the only) link mass. Same 1 kHz
     fixed-substep arithmetic as the reference (``simulator.cc:17-23``): the
-    rows path of the generated dynamics without forces, the packed
-    dynamics with them."""
+    rows path of the model's generated dynamics without forces, its packed
+    dynamics (``model.dynamics``) with them."""
     n_full, remainder = split_substeps(dt, internal_dt)
     if f_base is None and f_mass is None:
         rows = tuple(x[i] for i in range(x.shape[0]))
@@ -753,8 +754,8 @@ def run_closed_loop_lanes(mpc: MPC, x0, dynamics_params, num_steps: int,
     solve discards its warm start and applies ``u = 0`` for the tick.
 
     ``disturbances``: optional ``(B, num_steps, 2, 2)`` external plant
-    forces (``[:, :, 0]`` at the base, ``[:, :, 1]`` at the pole mass, each
-    ``(fx, fy)``), invisible to the planner."""
+    forces (``[:, :, 0]`` at the base, ``[:, :, 1]`` at the first link
+    mass, each ``(fx, fy)``), invisible to the planner, for every model."""
     B, sd = x0.shape
     dtype, device = x0.dtype, x0.device
     if mpc_state is None:

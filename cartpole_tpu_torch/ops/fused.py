@@ -40,15 +40,18 @@ import torch
 from ..mpc.problem import _qr_gram_factor
 from .integrate import mod_pi
 from .lanes import rk4_step_rows, segment_rollout_with_jac_rows
+from ._build import KERNEL_MODELS
 from .solver import NLSConfig, NLSTerminationState
 
 __all__ = ["FusedStatics", "make_fused_statics", "fused_iteration_reference",
            "fused_solve", "fused_supported", "full_f32_matmul"]
 
-#: The range the kernel is built and tested for: window, shooting states,
-#: terminal rows (a compile-time size of csrc/fused_iteration.cuh) and
-#: line-search trials.
-KMAX, NMAX, ALLMAX, LSMAX = 64, 17, 4, 8
+#: The range the kernel is built and tested for: window, shooting states
+#: and line-search trials. A model's terminal rows are at most its state
+#: dimension (``fused::Body::ALLMAX``); the config struct holds
+#: :data:`ROWS_MAX`, the largest (``fused::ROWS_MAX``).
+KMAX, NMAX, LSMAX = 64, 17, 8
+ROWS_MAX = 8
 #: Lanes per instance, as compiled (``FUSED_LANES`` of
 #: csrc/fused_iteration.cu), and instances per block; chosen on the card
 #: (PERF.md, kernel 1).
@@ -58,7 +61,6 @@ INSTANCES_PER_BLOCK = 4
 #: at the head of a workspace (``fused::N_SCALARS``).
 SMEM_BLOCK_MAX = 232448
 N_SCALARS = 22
-_SD, _NP = 4, 9
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,7 +69,9 @@ class FusedStatics:
     terminal-row specs, config scalars, and the static tensors on their
     device. Built once per (spec, config, dtype, device)."""
 
+    model: str  #: the model's name, which picks its kernel instantiation
     sd: int
+    n_p: int
     N: int
     sp: int
     K: int
@@ -116,7 +120,9 @@ def make_fused_statics(spec, config: NLSConfig, Hu_Q, Hu_eigs, Ju_cost,
                                device=device).contiguous()
 
     return FusedStatics(
-        sd=spec.state_dim, N=spec.num_states, sp=spec.spacing, K=K,
+        model=spec.model.name, sd=spec.state_dim,
+        n_p=len(dataclasses.fields(spec.model.params_type)),
+        N=spec.num_states, sp=spec.spacing, K=K,
         S=spec.num_states - 1, n_u=int(Ju_cost.shape[0]),
         angle=tuple(spec.model.angle_indices),
         term_costs=tuple(spec.terminal_costs),
@@ -201,7 +207,7 @@ def fused_iteration_reference(st: FusedStatics, params, xc, spt, up, xs, u,
                               fo_carry):
     """One damped-GN iteration, batch-last, in plain torch.
 
-    ``params`` a ``SingleCartPoleParams`` (fields 0-d or ``(B,)``), ``xc``
+    ``params`` the model's params (fields 0-d or ``(B,)``), ``xc``
     ``(sd, B)``, ``spt``/``up`` ``(B,)``, carry ``xs (sd, N, B)``, ``u (K,
     B)``, ``lam``/``mu_pen``/``merit_prev``/``fo_carry`` ``(B,)``,
     ``done``/``term`` ``(B,)`` int32. Returns the 14 outputs in the
@@ -616,9 +622,9 @@ def _args_struct(real):
         [(n, ctypes.c_int) for n in (
             "B", "K", "N", "S", "sp", "n_u", "n_tc", "n_t", "n_ls",
             "n_iter", "angle_mask")]
-        + [(n, ctypes.c_int * ALLMAX) for n in (
+        + [(n, ctypes.c_int * ROWS_MAX) for n in (
             "row_coord", "row_is_angle", "row_is_setpoint")]
-        + [(n, real * ALLMAX) for n in (
+        + [(n, real * ROWS_MAX) for n in (
             "row_target", "w_costs", "D_diag", "sqrtD")]
         + [(n, real) for n in (
             "dt", "h_half", "h_sixth", "u_limit", "b_x_limit", "w_du", "w_u",
@@ -683,18 +689,20 @@ def kernel_args(st: FusedStatics, B: int, n_iter: int, double=False):
 
 
 def workspace_reals(st: FusedStatics, lanes: int = LANES_PER_INSTANCE) -> int:
-    """Reals of one instance's shared workspace: ``fused::make_layout`` of
-    csrc/fused_iteration.cuh. The KKT solve's buffers, what the adjoint
-    stage hands on, and the line-search trials share one region."""
-    K, N, S, n_u = st.K, st.N, st.S, st.n_u
+    """Reals of one instance's shared workspace: ``fused::Body::make_layout``
+    of csrc/fused_iteration.cuh for the model's state dimension ``sd``,
+    parameter count ``n_p`` and ``sd`` terminal-row slots. The KKT solve's
+    buffers, what the adjoint stage hands on, and the line-search trials
+    share one region."""
+    K, N, S, n_u, sd = st.K, st.N, st.S, st.n_u, st.sd
     n_all = st.n_tc + st.n_t
-    fixed = (N_SCALARS + _NP + _SD + _SD * N + K + S * _SD * _SD + K * _SD
-             + S * _SD + _SD + _SD * K + _SD + 10 * ALLMAX + ALLMAX * ALLMAX
-             + n_u + 5 * K + N * _SD)
+    fixed = (N_SCALARS + st.n_p + sd + sd * N + K + S * sd * sd + K * sd
+             + S * sd + sd + sd * K + sd + 10 * sd + sd * sd
+             + n_u + 5 * K + N * sd)
     solve = (n_all + 1) * K + n_all * K + K + n_all * (K + n_all) + 3 * K
-    post = n_u + S * _SD
+    post = n_u + S * sd
     P = min(max(1, lanes // S), st.n_ls)
-    trials = P * (N * _SD + K + S * _SD + n_u + 2)
+    trials = P * (N * sd + K + S * sd + n_u + 2)
     return fixed + max(solve, post, trials)
 
 
@@ -715,12 +723,13 @@ def block_shape(st: FusedStatics, itemsize: int = 4):
 
 
 def check_sizes(st: FusedStatics):
-    """Raise where one instance's shared workspace beside the block's
-    statics would not fit in a block, and on a configuration beyond the
-    kernel's tested range."""
+    """Raise on a model without a compiled instantiation, where one
+    instance's shared workspace beside the block's statics would not fit in
+    a block, and on a configuration beyond the kernel's tested range."""
     n_all = st.n_tc + st.n_t
-    if st.sd != 4:
-        raise ValueError(f"fused kernel supports state_dim 4, got {st.sd}")
+    if st.model not in KERNEL_MODELS:
+        raise ValueError(f"fused kernel has no compiled dynamics for model "
+                         f"{st.model!r} (compiled: {KERNEL_MODELS})")
     ws, statics = 4 * workspace_reals(st), 4 * statics_reals(st)
     if statics + ws > SMEM_BLOCK_MAX:
         raise ValueError(
@@ -729,10 +738,10 @@ def check_sizes(st: FusedStatics):
             f"a block may use (K={st.K}, N={st.N}, n_u={st.n_u}, "
             f"n_all={n_all})"
         )
-    if not (st.K <= KMAX and st.N <= NMAX and n_all <= ALLMAX
+    if not (st.K <= KMAX and st.N <= NMAX and n_all <= st.sd
             and st.n_ls <= LSMAX and st.n_u <= 2 * KMAX):
         raise ValueError(
-            f"fused kernel limits K<={KMAX}, N<={NMAX}, n_all<={ALLMAX}, "
+            f"fused kernel limits K<={KMAX}, N<={NMAX}, n_all<={st.sd}, "
             f"n_ls<={LSMAX}; got K={st.K}, N={st.N}, n_all={n_all}, "
             f"n_ls={st.n_ls}"
         )
@@ -766,7 +775,7 @@ def kernel_io(st: FusedStatics, params, xc, spt, up, xs, u, lam, mu, merit,
         lam=lam, mu=mu, merit=merit, done=done, term=term, fo=fo,
     )
     shapes = dict(
-        params=(9, B), Q=(st.K, st.K), eigs=(st.K, 1), Juc=(st.n_u, st.K),
+        params=(st.n_p, B), Q=(st.K, st.K), eigs=(st.K, 1), Juc=(st.n_u, st.K),
         xc=(st.sd, B), spt=(B,), up=(B,), xs=(st.sd, st.N, B), u=(st.K, B),
         lam=(B,), mu=(B,), merit=(B,), done=(B,), term=(B,), fo=(B,),
     )
@@ -807,7 +816,8 @@ def _launch_cuda(st, params, xc, spt, up, carry, n_iter, lib=None,
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = lib.fused_iteration_launch_f32(
-            ptrs, kernel_args(st, carry[1].shape[-1], n_iter), lanes,
+            KERNEL_MODELS.index(st.model), ptrs,
+            kernel_args(st, carry[1].shape[-1], n_iter), lanes,
             instances or block_shape(st)[0], stream)
     del keep  # the launch is enqueued: stream order protects the inputs
     if rc != 0:
@@ -828,7 +838,7 @@ def kernel_occupancy(st: FusedStatics, B: int, instances=None, lib=None):
     w = instances or block_shape(st)[0]
     out = (ctypes.c_int * 6)()
     rc = (lib or load_library()).fused_iteration_occupancy_f32(
-        kernel_args(st, B, 1), w, out)
+        KERNEL_MODELS.index(st.model), kernel_args(st, B, 1), w, out)
     if rc != 0:
         raise RuntimeError(f"fused_iteration occupancy query failed: CUDA "
                            f"error {rc}")

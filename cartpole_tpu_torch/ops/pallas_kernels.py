@@ -29,6 +29,7 @@ from typing import Tuple
 import torch
 
 from ..models.base import SINGLE_CARTPOLE
+from ._build import KERNEL_MODELS
 from .lanes import segment_rollout_with_jac_scan
 
 __all__ = ["segment_jac_batch_last", "segment_jac_batch_last_reference",
@@ -36,8 +37,6 @@ __all__ = ["segment_jac_batch_last", "segment_jac_batch_last_reference",
 
 #: Compile-time maximum of the steps per segment (csrc/segment_jac.cuh).
 SPMAX = 16
-#: Models whose dynamics header is compiled into the kernel.
-KERNEL_MODELS = ("single",)
 THREADS_PER_BLOCK = 128
 
 
@@ -62,9 +61,10 @@ def segment_jac_batch_last_reference(params_cols, xs_cols, us_cols, h: float,
 def check_kernel_inputs(params_cols, xs_cols, us_cols, angle_indices,
                         model=SINGLE_CARTPOLE):
     """Raise on anything the kernel does not take: a model without a
-    compiled header, a dtype other than f32/f64, mixed dtypes or devices,
-    wrong shapes, non-contiguous tensors, ``sp`` beyond ``SPMAX`` or a
-    column count beyond int32 offsets. Returns the angle bit mask."""
+    compiled instantiation, a dtype other than f32/f64, mixed dtypes or
+    devices, shapes other than the model's parameter and state counts,
+    non-contiguous tensors, ``sp`` beyond ``SPMAX`` or a column count beyond
+    int32 offsets. Returns the angle bit mask."""
     if model.name not in KERNEL_MODELS:
         raise ValueError(f"segment_jac kernel has no compiled dynamics for "
                          f"model {model.name!r} (compiled: {KERNEL_MODELS})")
@@ -110,9 +110,9 @@ def _launch_cuda(params_cols, xs_cols, us_cols, h, angle_indices, model):
           else lib.segment_jac_launch_f64)
     dev = xs_cols.device
     with torch.cuda.device(dev):
-        rc = fn(params_cols.data_ptr(), xs_cols.data_ptr(),
-                us_cols.data_ptr(), x_end.data_ptr(), Jx.data_ptr(),
-                Ju.data_ptr(), R, sp, h, h * 0.5, h / 6.0, mask,
+        rc = fn(KERNEL_MODELS.index(model.name), params_cols.data_ptr(),
+                xs_cols.data_ptr(), us_cols.data_ptr(), x_end.data_ptr(),
+                Jx.data_ptr(), Ju.data_ptr(), R, sp, h, h * 0.5, h / 6.0, mask,
                 THREADS_PER_BLOCK, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"segment_jac kernel launch failed: CUDA error "
@@ -121,16 +121,18 @@ def _launch_cuda(params_cols, xs_cols, us_cols, h, angle_indices, model):
     return x_end, Jx, Ju
 
 
-def kernel_occupancy(R: int, sp: int, threads: int = THREADS_PER_BLOCK):
-    """What an f32 launch of the kernel over ``R`` columns of ``sp`` steps in
-    blocks of ``threads`` gets on the current card, as the CUDA runtime
-    reports it: registers and local (stack) bytes per thread, resident
-    blocks and warps per SM, warps of work per SM and the waves the grid
-    takes."""
+def kernel_occupancy(R: int, sp: int, threads: int = THREADS_PER_BLOCK,
+                     model=SINGLE_CARTPOLE):
+    """What an f32 launch of ``model``'s kernel over ``R`` columns of ``sp``
+    steps in blocks of ``threads`` gets on the current card, as the CUDA
+    runtime reports it: registers and local (stack) bytes per thread,
+    resident blocks and warps per SM, warps of work per SM and the waves the
+    grid takes."""
     from ._build import load_library
 
     out = (ctypes.c_int * 3)()
-    rc = load_library().segment_jac_occupancy_f32(sp, threads, out)
+    rc = load_library().segment_jac_occupancy_f32(
+        KERNEL_MODELS.index(model.name), sp, threads, out)
     if rc != 0:
         raise RuntimeError(f"segment_jac occupancy query failed: CUDA error "
                            f"{rc}")

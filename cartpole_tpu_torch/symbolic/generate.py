@@ -1,42 +1,63 @@
 """Code generation: emit the torch dynamics module and the CUDA header.
 
-Counterpart of ``cartpole_tpu/symbolic/generate.py``. Both outputs come from
-ONE common-subexpression elimination of the SymPy Euler-Lagrange derivation
-``derive_single_cartpole`` (``symbolic/lagrangian.py``), so the
-plain PyTorch path and the hand-written kernel evaluate the same expression
-DAG:
+Counterpart of ``cartpole_tpu/symbolic/generate.py``. For each model
+version (``single``, ``double``, ``triple``) both outputs come from ONE
+common-subexpression elimination of the SymPy Euler-Lagrange derivation
+``derive_<version>_cartpole`` (``symbolic/lagrangian.py``), so the
+plain PyTorch path and the hand-written kernels evaluate the same
+expression DAG:
 
-* ``models/_single_gen.py``: ``single_dynamics_core`` and
-  ``single_dynamics_jac_core`` over per-coordinate tensors (rows form), with
-  the structural ``0.0``/``1.0`` Jacobian entries kept as Python literals so
-  the rows-form chain rule (``ops/lanes.py``) folds them;
-* ``csrc/single_dynamics.cuh``: the same two functions as
+* ``models/_<version>_gen.py``: ``<version>_dynamics_core`` and
+  ``<version>_dynamics_jac_core`` over per-coordinate tensors (rows form),
+  with the structural ``0.0``/``1.0`` Jacobian entries kept as Python
+  literals so the rows-form chain rule (``ops/lanes.py``) folds them;
+* ``csrc/<version>_dynamics.cuh``: the same two functions as
   ``__host__ __device__`` templates on the real type ``T``. Transcendentals
   go through ``dyn_sin``/``dyn_cos``/``dyn_tanh``/``dyn_sqrt``, which pick the
   precise single- or double-precision library function for ``T`` (never the
-  ``__sinf``-style intrinsics).
+  ``__sinf``-style intrinsics). The single header defines them and the
+  ``cartpole_gen`` constants of the single model; the double and triple
+  headers include it and put their constants and functions in
+  ``cartpole_gen::double_pole`` and ``cartpole_gen::triple_pole``, so all
+  three compile together in one translation unit.
 
 The derivation is the port's own copy, ``symbolic/lagrangian.py``; it
 imports only sympy and typing.
 
-Usage (rewrites both outputs; ``tests/test_torch_dynamics.py`` checks that
-the committed ones are current)::
+Usage (rewrites both outputs of one version, ``single`` by default;
+``tests/test_torch_dynamics.py`` and ``tests/test_torch_codegen_multilink.py``
+check that the committed ones are current)::
 
-    python -m cartpole_tpu_torch.symbolic.generate
+    python -m cartpole_tpu_torch.symbolic.generate [--version double]
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import sys
 
 from . import lagrangian
 
-__all__ = ["generate_torch_module", "generate_cuda_header", "main"]
+__all__ = ["VERSIONS", "outputs", "generate_torch_module",
+           "generate_cuda_header", "main"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-TORCH_OUT = os.path.join(_PKG, "models", "_single_gen.py")
-CUDA_OUT = os.path.join(_PKG, "csrc", "single_dynamics.cuh")
+#: Model version -> its derivation.
+VERSIONS = {
+    "single": lagrangian.derive_single_cartpole,
+    "double": lagrangian.derive_double_cartpole,
+    "triple": lagrangian.derive_triple_cartpole,
+}
+
+
+def outputs(version: str = "single") -> tuple[str, str]:
+    """``(torch module, CUDA header)`` paths of one model version."""
+    return (os.path.join(_PKG, "models", f"_{version}_gen.py"),
+            os.path.join(_PKG, "csrc", f"{version}_dynamics.cuh"))
+
+
+TORCH_OUT, CUDA_OUT = outputs("single")
 
 
 def _cse(model):
@@ -191,10 +212,10 @@ def _printers():
 
 _TORCH_HEADER = '''"""Machine-generated cart-pole dynamics for PyTorch — do not edit.
 
-Generated by ``python -m cartpole_tpu_torch.symbolic.generate`` from the
+Generated by ``python -m cartpole_tpu_torch.symbolic.generate{flag}`` from the
 SymPy Euler-Lagrange derivation in ``symbolic/lagrangian.py``;
-the same CSE feeds ``csrc/single_dynamics.cuh``. Counterpart of
-``cartpole_tpu/models/_single_gen.py``.
+the same CSE feeds ``csrc/{version}_dynamics.cuh``. Counterpart of
+``cartpole_tpu/models/_{version}_gen.py``.
 """
 
 import torch
@@ -247,6 +268,30 @@ __host__ __device__ inline T dyn_max(T a, T b) {{
 
 '''
 
+#: The header of the double and triple models: the dyn_* helpers come from
+#: the single header, the constants and functions live in a namespace of
+#: the model's own.
+_CUDA_HEADER_MULTILINK = '''// Machine-generated cart-pole dynamics for CUDA C++ -- do not edit.
+//
+// Generated by `python -m cartpole_tpu_torch.symbolic.generate --version
+// {version}` from the SymPy Euler-Lagrange derivation in
+// symbolic/lagrangian.py; the same CSE feeds models/_{version}_gen.py.
+// Templated on the real type T. The dyn_* helpers are single_dynamics.cuh's
+// (the precise library functions of T, never the __sinf-style fast
+// intrinsics).
+#pragma once
+
+#include "single_dynamics.cuh"
+
+namespace cartpole_gen {{
+namespace {version}_pole {{
+
+constexpr int N_Q = {n_q};
+constexpr int STATE_DIM = {sd};
+constexpr int N_PARAMS = {n_p};
+
+'''
+
 
 def _emit_torch_prologue(lines, model, fname, doc):
     param_names = ", ".join(str(s) for s in model.param_syms)
@@ -269,19 +314,25 @@ def _emit_torch_prologue(lines, model, fname, doc):
         lines.append(f"        {s} = forces[{i}]\n")
 
 
-def generate_torch_module(model) -> str:
-    """Render ``single_dynamics_core`` and ``single_dynamics_jac_core`` as
-    torch source (counterpart of the JAX emitter's rows-form functions)."""
+def _flag(version: str) -> str:
+    return "" if version == "single" else f" --version {version}"
+
+
+def generate_torch_module(model, version: str = "single") -> str:
+    """Render ``<version>_dynamics_core`` and ``<version>_dynamics_jac_core``
+    as torch source (counterpart of the JAX emitter's rows-form
+    functions)."""
     tp, _ = _printers()
     (rep_p, red_p), (rep_j, red_j) = _cse(model)
     n_q = len(model.qdd_exprs)
     sd = 2 * n_q
-    lines = [_TORCH_HEADER.format(n_q=n_q, sd=sd)]
+    lines = [_TORCH_HEADER.format(n_q=n_q, sd=sd, version=version,
+                                  flag=_flag(version))]
     vel = ", ".join(str(model.state_syms[n_q + i]) for i in range(n_q))
     acc = ", ".join(f"qdd_{i}" for i in range(n_q))
 
     _emit_torch_prologue(
-        lines, model, "single_dynamics_core",
+        lines, model, f"{version}_dynamics_core",
         "Continuous-time dynamics, rows-out: returns the tuple "
         "(qd_0, ..., qdd_0, ...).",
     )
@@ -292,7 +343,7 @@ def generate_torch_module(model) -> str:
     lines.append(f"    return ({vel}, {acc})\n\n\n")
 
     _emit_torch_prologue(
-        lines, model, "single_dynamics_jac_core",
+        lines, model, f"{version}_dynamics_jac_core",
         "Rows-out dynamics + analytic Jacobians: returns "
         "(x_dot_rows, J_x_rows, J_u_rows) as nested tuples. Constant "
         "entries are Python literals 0.0/1.0 so downstream chain-rule "
@@ -340,18 +391,20 @@ def _emit_cuda_prologue(lines, model, fname, outs):
         lines.append(f"  const T {s} = T(0);\n")
 
 
-def generate_cuda_header(model) -> str:
+def generate_cuda_header(model, version: str = "single") -> str:
     """Render the same two functions as ``__host__ __device__`` templates:
-    ``single_dynamics_core(p, x, u, xdot)`` and
-    ``single_dynamics_jac_core(p, x, u, xdot, Jx, Ju)`` (dense ``Jx[sd*sd]``
-    row-major, ``Ju[sd]``)."""
+    ``<version>_dynamics_core(p, x, u, xdot)`` and
+    ``<version>_dynamics_jac_core(p, x, u, xdot, Jx, Ju)`` (dense
+    ``Jx[sd*sd]`` row-major, ``Ju[sd]``)."""
     _, cp = _printers()
     (rep_p, red_p), (rep_j, red_j) = _cse(model)
     n_q = len(model.qdd_exprs)
     sd = 2 * n_q
-    lines = [_CUDA_HEADER.format(n_q=n_q, sd=sd, n_p=len(model.param_syms))]
+    header = _CUDA_HEADER if version == "single" else _CUDA_HEADER_MULTILINK
+    lines = [header.format(n_q=n_q, sd=sd, n_p=len(model.param_syms),
+                           version=version)]
 
-    _emit_cuda_prologue(lines, model, "single_dynamics_core", "T* xdot")
+    _emit_cuda_prologue(lines, model, f"{version}_dynamics_core", "T* xdot")
     for lhs, rhs in rep_p:
         lines.append(f"  const T {lhs} = {cp.doprint(rhs)};\n")
     for i in range(n_q):
@@ -360,7 +413,7 @@ def generate_cuda_header(model) -> str:
         lines.append(f"  xdot[{n_q + i}] = {cp.doprint(e)};\n")
     lines.append("}\n\n")
 
-    _emit_cuda_prologue(lines, model, "single_dynamics_jac_core",
+    _emit_cuda_prologue(lines, model, f"{version}_dynamics_jac_core",
                         "T* xdot, T* Jx, T* Ju")
     for lhs, rhs in rep_j:
         lines.append(f"  const T {lhs} = {cp.doprint(rhs)};\n")
@@ -381,14 +434,21 @@ def generate_cuda_header(model) -> str:
             idx += 1
         lines.append(f"  Ju[{r}] = {cp.doprint(red_j[idx])};\n")
         idx += 1
-    lines.append("}\n\n}  // namespace cartpole_gen\n")
+    lines.append("}\n\n")
+    if version != "single":
+        lines.append(f"}}  // namespace {version}_pole\n")
+    lines.append("}  // namespace cartpole_gen\n")
     return "".join(lines)
 
 
-def main() -> int:
-    model = lagrangian.derive_single_cartpole()
-    for path, src in ((TORCH_OUT, generate_torch_module(model)),
-                      (CUDA_OUT, generate_cuda_header(model))):
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--version", choices=tuple(VERSIONS), default="single")
+    version = ap.parse_args(argv).version
+    model = VERSIONS[version]()
+    torch_out, cuda_out = outputs(version)
+    for path, src in ((torch_out, generate_torch_module(model, version)),
+                      (cuda_out, generate_cuda_header(model, version))):
         with open(path, "w") as f:
             f.write(src)
         print(f"wrote {path}", file=sys.stderr)

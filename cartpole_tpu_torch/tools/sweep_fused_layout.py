@@ -32,6 +32,7 @@ import chip_smoke as cs
 import cartpole_tpu_torch as pt
 from cartpole_tpu_torch.mpc import lanes
 from cartpole_tpu_torch.ops import _build, fused
+from cartpole_tpu_torch.ops import pallas_kernels as pk
 
 #: (lanes per instance, None, a register cap, or a macro to define).
 VARIANTS = ((16, None), (32, None), (8, None))
@@ -95,7 +96,8 @@ def main() -> int:
         max_iterations=8, state_spacing=5, kkt_method="condensed"))
     n_iter = mpc.nls_config.max_iterations
     dp = pt.default_single_params(torch.float32, dev)
-    x0 = torch.as_tensor(cs.bench_x0s(B), dtype=torch.float32, device=dev)
+    x0 = torch.as_tensor(cs.make_x0s("single", B), dtype=torch.float32,
+                         device=dev)
     cold = pt.MPCState(
         previous_solution=torch.zeros((B, mpc.spec.dim), device=dev),
         warm=torch.zeros((B,), dtype=torch.bool, device=dev))
@@ -138,17 +140,18 @@ def main() -> int:
             print(f"[layout] {json.dumps(row)}  ({card})", flush=True)
 
     lib = libs[prof]
-    lib.fused_iteration_profile.argtypes = [ctypes.c_void_p]
+    lib.fused_iteration_profile.argtypes = [ctypes.c_int, ctypes.c_void_p]
     lib.fused_iteration_profile.restype = ctypes.c_int
     names = _step_names(st.n_tc + st.n_t)
     for name, (args, carry) in problems.items():
         buf = torch.zeros(2 * 128, dtype=torch.int64, device=dev)
-        if lib.fused_iteration_profile(buf.data_ptr()) != 0:
+        model = pk.KERNEL_MODELS.index(st.model)
+        if lib.fused_iteration_profile(model, buf.data_ptr()) != 0:
             raise SystemExit("profile buffer not set")
         out = fused._launch_cuda(*args, carry, n_iter, lib, PROFILE_LANES,
                                  fused.INSTANCES_PER_BLOCK)
         torch.cuda.synchronize()
-        lib.fused_iteration_profile(None)
+        lib.fused_iteration_profile(model, None)
         ok &= same(out, ref[name])
         cyc, calls = buf[0::2].tolist(), buf[1::2].tolist()
         total = sum(cyc)

@@ -10,13 +10,14 @@ the default block's outputs bit for bit (one thread computes a column
 whole), in f32 on both problems and in f64 on the cold one; the default is
 also held against the plain version under ``chip_smoke.py``'s gates.
 
-With ``--against DIR``, the kernel-2 source of another checkout of the
-repository (``DIR/cartpole_tpu_torch/csrc/segment_jac.cu``, whose C launchers
-take the same arguments) is built too, in parallel, and timed in the same
-rounds at the same block sizes; whether its outputs have this build's bits
-is printed. That is how two designs are compared on one card in one
-process. Prints one JSON line per build and block size with the card's
-name and power limit, and the SM clock before the timing.
+With ``--against DIR``, kernel 2 of another checkout of the repository
+(``DIR/cartpole_tpu_torch/csrc``, built from its ``segment_jac*`` units as
+``ops/_build.py`` builds them here; its C launchers take the same
+arguments, the model id first) is built too, in parallel, and timed in the same rounds at the same block sizes; whether its
+outputs have this build's bits is printed. That is how two designs are
+compared on one card in one process. Prints one JSON line per build and
+block size with the card's name and power limit, and the SM clock before
+the timing.
 
 Usage, from the repository root:
     python3 -m cartpole_tpu_torch.tools.sweep_segment_jac [--against DIR]
@@ -30,7 +31,6 @@ import concurrent.futures
 import ctypes
 import json
 import os
-import subprocess
 import sys
 
 import torch
@@ -46,23 +46,19 @@ WARM_TICKS = 20
 
 
 def _build_other(root: str) -> ctypes.CDLL:
-    """Kernel 2 of the checkout at ``root``, alone in a shared library."""
-    src = os.path.join(root, "cartpole_tpu_torch", "csrc", "segment_jac.cu")
-    os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    out = os.path.join(_build.BUILD_DIR, f"libsegjac_other.{os.getpid()}.so")
-    proc = subprocess.run(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", out, src],
-        capture_output=True, text=True, timeout=900)
-    if proc.returncode != 0:
-        raise SystemExit(f"nvcc failed on {src}:\n{proc.stdout}"
-                         f"{proc.stderr}")
-    lib = ctypes.CDLL(out)
-    os.remove(out)
+    """Kernel 2 of the checkout at ``root``, alone in a shared library
+    (its ``segment_jac*`` units of ``_build.device_units``)."""
+    path, _ = _build.build_library(
+        csrc=os.path.join(root, "cartpole_tpu_torch", "csrc"),
+        prefix="segment_jac")
+    lib = ctypes.CDLL(path)
+    _build.check_models(lib)
     for name, real in (("segment_jac_launch_f32", ctypes.c_float),
                        ("segment_jac_launch_f64", ctypes.c_double)):
         fn = getattr(lib, name)
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
-                       + [real] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+                       + [ctypes.c_int] * 2 + [real] * 3 + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 
@@ -72,11 +68,13 @@ def _launch(lib, inputs, h, angle, threads):
     ``threads``, through its C launcher."""
     p, xs, us = inputs
     R, sp = xs.shape[1], us.shape[0]
-    outs = (torch.empty_like(xs), xs.new_empty((4, 4, R)),
-            xs.new_empty((4, sp, R)))
+    sd = xs.shape[0]
+    outs = (torch.empty_like(xs), xs.new_empty((sd, sd, R)),
+            xs.new_empty((sd, sp, R)))
     fn = (lib.segment_jac_launch_f32 if xs.dtype == torch.float32
           else lib.segment_jac_launch_f64)
-    rc = fn(p.data_ptr(), xs.data_ptr(), us.data_ptr(),
+    rc = fn(pk.KERNEL_MODELS.index("single"), p.data_ptr(), xs.data_ptr(),
+            us.data_ptr(),
             *(o.data_ptr() for o in outs), R, sp, h, h * 0.5, h / 6.0,
             sum(1 << a for a in angle), threads,
             torch.cuda.current_stream().cuda_stream)
@@ -112,7 +110,8 @@ def main() -> int:
         max_iterations=8, state_spacing=5, kkt_method="condensed"))
     h, angle = mpc.params.control_dt, mpc.model.angle_indices
     dp = pt.default_single_params(torch.float32, dev)
-    x0 = torch.as_tensor(cs.bench_x0s(B), dtype=torch.float32, device=dev)
+    x0 = torch.as_tensor(cs.make_x0s("single", B), dtype=torch.float32,
+                         device=dev)
     cold = pt.MPCState(
         previous_solution=torch.zeros((B, mpc.spec.dim), device=dev),
         warm=torch.zeros((B,), dtype=torch.bool, device=dev))
@@ -122,9 +121,9 @@ def main() -> int:
     seg_warm = cs.segment_inputs_problem(*lanes._prepare(
         mpc, res.final_mpc_state, res.final_state, dp))
     cs.check_segment_jac("sweep: cold-start shooting problem", seg_cold, h,
-                         angle, card)
+                         card)
     cs.check_segment_jac(f"sweep: warm, after {WARM_TICKS} ticks of path 2",
-                         seg_warm, h, angle, card)
+                         seg_warm, h, card)
     problems = {"cold": tuple(t.float() for t in seg_cold),
                 f"tick {WARM_TICKS}": tuple(t.float() for t in seg_warm),
                 "f64 cold": seg_cold}

@@ -7,15 +7,22 @@ batch 4096, window 40, spacing 5, 8 GN iterations, 5 line-search trials,
 bench.py's swing-up initial states, seed 0):
 
 * path 1, ``fused=True``: the whole solve as one launch of kernel 1
-  (``csrc/fused_iteration.cu``), 300 ticks;
+  (``csrc/fused_iteration*.cu``), ``TICKS`` ticks;
 * path 2, ``fused=False``: the reference's XLA-lanes body, whose
-  linearization is one launch of kernel 2 (``csrc/segment_jac.cu``) per GN
-  iteration, the rest eager torch (``TICKS_PATH2`` ticks).
+  linearization is one launch of kernel 2 (``csrc/segment_jac*.cu``) per GN
+  iteration, the rest eager torch (``TICKS_PATH2`` ticks);
 
-Phases, each fatal on failure: device; build (both kernels in one library,
-one nvcc per source in parallel; both kernels' registers, stack frames and
-spills, kernel 2 for each of its step-count instantiations, none of which
-may spill in f32); segment_jac (kernel 2 against its plain version, f64 and f32, on
+and both paths for the double and the triple pole at the JAX bench's
+multi-link regime (window 60, every terminal objective a soft cost,
+bench.py's perturbed-upright initial states): the double through
+``run_scheduled_closed_loop`` with the bench's transient weight
+(``DOUBLE_SCHEDULE``), the triple through ``run_closed_loop_lanes``.
+
+Phases, each fatal on failure: device; build (both kernels for the three
+models in one library, one nvcc per source in parallel; each kernel's
+registers, stack frames and spills per model, kernel 2 for each of its
+step-count instantiations, none of which may spill in f32 for the single
+model); segment_jac (kernel 2 against its plain version, f64 and f32, on
 random columns, a ragged R that leaves the last block part full, one and
 SPMAX steps per segment, and the cold-start shooting problem); kernel 1
 against its plain version (cold start, and a ragged batch of RAGGED
@@ -24,16 +31,21 @@ its plain version (warm starts after tick 1 and the last tick); disturbed
 (100 ticks of path 1 with a shove at the pole mass); path 2; kernel 2
 against its plain version on the warm linearization after path 2's last
 tick; cross (path 2 against path 1 on the cold-start problem, and path 2
-under ``torch.set_float32_matmul_precision("high")``); timing (both
+under ``torch.set_float32_matmul_precision("high")``); for the double and
+the triple, segment_jac and kernel 1 against their plain versions at the
+regime's width, then double (path 1 through the schedule, its upright
+share tick by tick against the JAX package's, path 2, and cross on the cold
+problem) and triple (path 1 and path 2); timing (both
 kernels by device time, ``device_ms``: kernel 1 on the warm problem after
-path 1's last tick, kernel 2 on the cold and the warm problem) and a
-profile of one tick of each path (device-busy share, kernel launches), with
+path 1's last tick, kernel 2 on the cold and the warm problem, for every
+model) and a profile of one tick of each single-model path and of the
+double's and triple's path 1 (device-busy share, kernel launches), with
 both kernels' launch layouts (registers, shared bytes per block, resident
 blocks and warps per SM).
 Every kernel launch counter is set to 0 just before a path is driven and
-read just after. Prints the card's name and power limit beside every number, one JSON
-line describing the kernels, and as its last line ``{"ok": true, "device":
-{...}}``.
+read just after. Prints the card's name and power limit beside every
+number, one JSON line describing the kernels, and as its last line
+``{"ok": true, "device": {...}}``.
 
 Usage: python3 chip_smoke.py
 Needs one CUDA device, nvcc (CUDA toolkit) and the repository beside it.
@@ -60,10 +72,43 @@ from cartpole_tpu_torch.mpc import lanes
 from cartpole_tpu_torch.ops import _build, fused
 from cartpole_tpu_torch.ops import pallas_kernels as pk
 
-BATCH, TICKS, TICKS_PATH2, TICKS_DISTURBED = 4096, 300, 300, 100
+BATCH, TICKS, TICKS_PATH2, TICKS_DISTURBED = 4096, 250, 150, 100
+#: Single-tick calls whose median is the single's ms/tick.
+MEDIAN_TICKS = 10
 #: A batch that is not a multiple of kernel 1's instances per block, and a
 #: column count that is not one of kernel 2's columns per block.
 RAGGED, RAGGED_COLUMNS = 4093, 32765
+#: The double- and triple-pole regime of bench.py
+#: (``DOUBLE_SOFT_OPT_KWARGS``): a 0.6 s window, every terminal objective a
+#: soft cost, no sinusoid kick; 8 GN iterations, spacing 5.
+MULTILINK_KWARGS = dict(
+    window_length=60, th_final_cost_weight=150.0,
+    th_dot_final_cost_weight=10.0, b_x_dot_final_cost_weight=10.0,
+    u_guess_sinusoid_amplitude=0.0, max_iterations=8, state_spacing=5,
+    kkt_method="condensed")
+#: bench.py's double-pole outcome run (``_double_health``) is 250 ticks:
+#: an 8x u-rate weight for the first 50 cold-start ticks, then the base
+#: weights. Its eager glue takes ~2.3 s a tick on the card's host (~324k
+#: launches; PERF.md), so the smoke runs the schedule's first 100 ticks:
+#: the whole transient and 50 ticks of the base weights.
+DOUBLE_SCHEDULE = ((50, {"u_derivative_cost_weight": 0.8}), (50, None))
+#: The JAX bench's outcome of the 250-tick run (BENCH_r05.json, TPU v5e),
+#: printed beside this run's, and the gate on failed solves: the count of
+#: the JAX package's unscheduled 250-tick run (knockdowns.json
+#: ``n_failed_base``).
+DOUBLE_REFERENCE = dict(fraction_upright=0.9956, n_failed=0)
+DOUBLE_MAX_FAILED = 4
+#: The upright share of the same regime tick by tick, from the JAX
+#: package's lanes loop on a CPU in f32 over the first states of
+#: make_x0s("double", 4096) (scripts/probe_double_upright_cpu.py): the
+#: port's share at each of UPRIGHT_CHECKPOINTS must lie within
+#: UPRIGHT_SIGMAS binomial standard deviations of it. After 100 ticks the
+#: recovery is half done (the share climbs towards ~0.99 by tick 250), so
+#: the curve, not one end value, is what the two runs share.
+UPRIGHT_WITNESS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "double_upright_jax_cpu.json")
+UPRIGHT_CHECKPOINTS, UPRIGHT_SIGMAS = (25, 50, 75, 100), 4.0
+TICKS_DOUBLE_PATH2, TICKS_TRIPLE, TICKS_TRIPLE_PATH2 = 5, 30, 10
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s off the
 #: tensor cores.
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
@@ -78,13 +123,26 @@ def _card() -> str:
     return out[0].strip()
 
 
-def bench_x0s(n: int, seed: int = 0) -> np.ndarray:
-    """bench.py's single-model initial states: swing-up from hang with the
-    cart and angle perturbed by U(-0.5, 0.5)."""
+def make_x0s(model: str, n: int, seed: int = 0) -> np.ndarray:
+    """bench.py's initial states (``make_x0s``): swing-up from hang for the
+    single model, perturbed-upright disturbance rejection for the double
+    and triple models."""
     rng = np.random.RandomState(seed)
-    x0s = np.tile(np.array([0.0, -math.pi / 2, 0.0, 0.0]), (n, 1))
-    x0s[:, 0] += rng.uniform(-0.5, 0.5, n)
-    x0s[:, 1] += rng.uniform(-0.5, 0.5, n)
+    up = math.pi / 2
+    if model == "triple":
+        x0s = np.tile(np.array([0.0, up, up, up, 0.0, 0.0, 0.0, 0.0]),
+                      (n, 1))
+        x0s[:, 0] += rng.uniform(-0.2, 0.2, n)
+        x0s[:, 1:4] += rng.uniform(-0.06, 0.06, (n, 3))
+    elif model == "double":
+        x0s = np.tile(np.array([0.0, up, up, 0.0, 0.0, 0.0]), (n, 1))
+        x0s[:, 0] += rng.uniform(-0.3, 0.3, n)
+        x0s[:, 1] += rng.uniform(-0.15, 0.15, n)
+        x0s[:, 2] += rng.uniform(-0.1, 0.1, n)
+    else:
+        x0s = np.tile(np.array([0.0, -up, 0.0, 0.0]), (n, 1))
+        x0s[:, 0] += rng.uniform(-0.5, 0.5, n)
+        x0s[:, 1] += rng.uniform(-0.5, 0.5, n)
     return x0s
 
 
@@ -93,9 +151,11 @@ def _upright_error(th):
     return np.abs(np.mod(th - math.pi / 2 + math.pi, 2 * math.pi) - math.pi)
 
 
-def upright_fraction(xf: np.ndarray) -> float:
-    """bench.py's definition: pole within 0.1 rad of upright."""
-    return float(np.mean(_upright_error(xf[:, 1]) < 0.1))
+def upright_fraction(xf: np.ndarray, angle_indices=(1,)) -> float:
+    """bench.py's definition (``_upright_fraction``): every link within 0.1
+    rad of upright."""
+    return float(np.mean(np.all(
+        _upright_error(xf[:, list(angle_indices)]) < 0.1, axis=1)))
 
 
 def reset_counts():
@@ -157,9 +217,11 @@ def bound(n_bytes: float, n_ops: float):
                                        else "operations")
 
 
-def time_cuda(fn, reps):
-    """Mean ms per call of ``fn`` over ``reps`` calls, by CUDA events."""
-    fn()
+def time_cuda(fn, reps, warmup=True):
+    """Mean ms per call of ``fn`` over ``reps`` calls, by CUDA events, after
+    one call to warm up (which a call of seconds can do without)."""
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
@@ -211,9 +273,9 @@ def clocks() -> str:
 
 
 def ptxas_entries(log: str):
-    """Each kernel entry of a ``ptxas -v`` log: the kernel's name, for
-    kernel 2 its steps per segment and real type, registers, stack frame
-    bytes and spill-store bytes."""
+    """Each kernel entry of a ``ptxas -v`` log: the kernel's name and model,
+    for kernel 2 its steps per segment and real type, registers, stack
+    frame bytes and spill-store bytes."""
     out, lines = [], log.splitlines()
     for i, line in enumerate(lines):
         if "Compiling entry" not in line:
@@ -226,14 +288,54 @@ def ptxas_entries(log: str):
                                      props).group(1)),
                  spill=int(re.search(r"(\d+) bytes spill stores",
                                      props).group(1)))
+        m = re.search(r"(Single|Double|Triple)CartPole", line)
+        e["model"] = m.group(1).lower() if m else None
         if "fused_iteration_kernel" in line:
             e["kernel"] = "fused_iteration"
-        m = re.search(r"segment_jac_kernelILi(\d+)E([fd])E", line)
+        m = re.search(r"segment_jac_kernelILi(\d+)E\w*?CartPoleE([fd])E",
+                      line)
         if m:
             e.update(kernel="segment_jac", sp=int(m.group(1)),
                      dtype="f32" if m.group(2) == "f" else "f64")
         out.append(e)
     return out
+
+
+def build_report(entries):
+    """Print both kernels' registers, stack frames and spills for every
+    model (kernel 2 at sp=5 and over its step-count instantiations); fail if
+    an instantiation is missing from the log, or if the single model's
+    kernel 2 spills in f32."""
+    for model in pk.KERNEL_MODELS:
+        mine = [e for e in entries if e["model"] == model]
+        for e in mine:
+            if e["kernel"] == "fused_iteration":
+                print(f"[build] kernel 1 (fused_iteration, {model}, "
+                      f"{fused.LANES_PER_INSTANCE} lanes per instance): "
+                      f"{e['registers']} registers; {e['stack']} B stack "
+                      f"frame, {e['spill']} B spill stores", flush=True)
+        for dtype in ("f32", "f64"):
+            k2 = [e for e in mine
+                  if e["kernel"] == "segment_jac" and e["dtype"] == dtype]
+            if len(k2) != pk.SPMAX:
+                raise SystemExit(f"[build] {len(k2)} {model} {dtype} "
+                                 f"kernel-2 entries in the ptxas log, not "
+                                 f"{pk.SPMAX}")
+            main_sp = next(e for e in k2 if e["sp"] == 5)
+            print(f"[build] kernel 2 (segment_jac, {model}, {dtype}, one "
+                  f"thread per column, sp=5): {main_sp['registers']} "
+                  f"registers; {main_sp['stack']} B stack frame, "
+                  f"{main_sp['spill']} B spill stores; over "
+                  f"sp=1..{pk.SPMAX}: {min(e['registers'] for e in k2)}-"
+                  f"{max(e['registers'] for e in k2)} registers, stack "
+                  f"frames up to {max(e['stack'] for e in k2)} B, spill "
+                  f"stores up to {max(e['spill'] for e in k2)} B",
+                  flush=True)
+            if (model == "single" and dtype == "f32"
+                    and any(e["spill"] for e in k2)):
+                raise SystemExit("[build] kernel 2 spills in f32")
+    if not any(e["kernel"] == "fused_iteration" for e in entries):
+        raise SystemExit("[build] no kernel-1 entry in the ptxas log")
 
 
 def time_host(fn, reps):
@@ -249,7 +351,10 @@ def time_host(fn, reps):
 
 def profile_ticks(mpc, dp, x, mst, fused_flag, n=1):
     """``n`` warm ticks under ``torch.profiler``: wall ms, device-busy ms
-    (sum of the CUDA kernels' self time), and kernel launches, per tick."""
+    (sum of the kernels', copies' and fills' device time), and kernel
+    launches, per tick. Reads the profiler's raw events: a double-pole
+    tick has ~1M of them, which ``key_averages`` takes a minute or more
+    to aggregate."""
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -260,24 +365,34 @@ def profile_ticks(mpc, dp, x, mst, fused_flag, n=1):
             x, mst = r.final_state, r.final_mpc_state
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    events = prof.profiler.kineto_results.events()
+    # Event durations are in ns in newer releases of torch, in us in older.
+    dur_us = ((lambda e: e.duration_ns() / 1e3)
+              if events and hasattr(events[0], "duration_ns")
+              else (lambda e: e.duration_us()))
     busy_us, launches = 0.0, 0
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            busy_us += e.self_device_time_total
-        elif e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
-                       "cuLaunchKernel"):
-            launches += e.count
+    for e in events:
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            busy_us += dur_us(e)
+        elif e.name() in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                          "cuLaunchKernel"):
+            launches += 1
     return dict(wall_ms=wall / n, device_busy_ms=busy_us / 1e3 / n,
                 device_idle_share=1 - busy_us / 1e3 / wall,
                 launches=launches / n)
 
 
 # ------------------------------------------------------------- kernel 2
-def segment_inputs_random(R, sp, dev, seed=0):
+def segment_inputs_random(R, sp, dev, seed=0, model=pt.SINGLE_CARTPOLE):
+    """Random columns of ``model``: positions in [-1, 1], angles in [-4,
+    4], base velocity in [-3, 3], angle rates in [-8, 8], controls in [-10,
+    10], the model's default params; f64."""
     rng = np.random.RandomState(seed)
-    xs = rng.uniform(-1, 1, (4, R)) * np.array([[1.0], [4.0], [3.0], [8.0]])
+    n_q = model.state_dim // 2
+    scale = [1.0] + [4.0] * (n_q - 1) + [3.0] + [8.0] * (n_q - 1)
+    xs = rng.uniform(-1, 1, (model.state_dim, R)) * np.array(scale)[:, None]
     us = rng.uniform(-10, 10, (sp, R))
-    dp = pt.default_single_params(torch.float64, dev)
+    dp = model.params_type().to(torch.float64, dev)
     p = fused.params_block(dp, R, torch.float64, dev)
     return p, torch.as_tensor(xs, device=dev), torch.as_tensor(us, device=dev)
 
@@ -291,17 +406,21 @@ def segment_inputs_problem(problem, Z):
     return tuple(t.double().contiguous() for t in (p, x_start, useg))
 
 
-def check_segment_jac(tag, inputs, h, angle, card):
-    """Kernel 2 against its plain version on the same inputs: f64 kernel
-    vs f64 plain within 1e-12 x max(1, |value|) on every output; f32
-    kernel vs f64 plain at most twice the f32 plain version's error (99.9th
-    percentile over columns of each output's worst element)."""
+def check_segment_jac(tag, inputs, h, card, model=pt.SINGLE_CARTPOLE):
+    """Kernel 2 of ``model`` against its plain version on the same inputs:
+    f64 kernel vs f64 plain within 1e-12 x max(1, |value|) on every output;
+    f32 kernel vs f64 plain at most twice the f32 plain version's error
+    (99.9th percentile over columns of each output's worst element)."""
+    angle = model.angle_indices
+    phase = ("segment_jac" if model.name == "single"
+             else f"segment_jac {model.name}")
     p64, x64, u64 = inputs
-    k64 = pk.segment_jac_batch_last(p64, x64, u64, h, angle)
-    ref = pk.segment_jac_batch_last_reference(p64, x64, u64, h, angle)
+    k64 = pk.segment_jac_batch_last(p64, x64, u64, h, angle, model)
+    ref = pk.segment_jac_batch_last_reference(p64, x64, u64, h, angle,
+                                              model)
     f32 = tuple(t.float() for t in inputs)
-    k32 = pk.segment_jac_batch_last(*f32, h, angle)
-    p32 = pk.segment_jac_batch_last_reference(*f32, h, angle)
+    k32 = pk.segment_jac_batch_last(*f32, h, angle, model)
+    p32 = pk.segment_jac_batch_last_reference(*f32, h, angle, model)
     torch.cuda.synchronize()
     out, ok = {}, True
     for name, a64, a32, b32, r in zip(("x_end", "Jx", "Ju"), k64, k32, p32,
@@ -319,11 +438,11 @@ def check_segment_jac(tag, inputs, h, angle, card):
         out[name] = dict(f64_max_rel=e64, f32_kernel_p999=ek,
                          f32_plain_p999=ep, finite=finite)
     max_abs = max(float((a - b).abs().max()) for a, b in zip(k32, p32))
-    print(f"[segment_jac] {tag}, R={x64.shape[1]}: {json.dumps(out)}; "
-          f"f32 kernel vs f32 plain max abs {max_abs:.3e}  ({card})",
-          flush=True)
+    print(f"[{phase}] {tag}, R={x64.shape[1]}, sp={u64.shape[0]}: "
+          f"{json.dumps(out)}; f32 kernel vs f32 plain max abs "
+          f"{max_abs:.3e}  ({card})", flush=True)
     if not ok:
-        raise SystemExit(f"[segment_jac] {tag}: kernel disagrees with its "
+        raise SystemExit(f"[{phase}] {tag}: kernel disagrees with its "
                          f"plain version")
     return max_abs
 
@@ -351,6 +470,14 @@ def path_of_outputs(Z, out):
                 alpha=out.iter_step_size.T, u=Z.u)
 
 
+def _relative(err, scale):
+    """``err / scale``; 0 where both are 0 (every agreeing instance kept
+    u = 0: no step was accepted), inf where only the scale is."""
+    if scale > 0:
+        return err / scale
+    return 0.0 if err == 0 else math.inf
+
+
 def _agreement(a, b):
     """Instances that took the same path — identical termination codes,
     iteration counts and accepted step sizes in every iteration — and max
@@ -370,25 +497,27 @@ def _agreement(a, b):
         alpha_differ=int((~alpha_same).sum()),
         identical_fraction=float(agree.float().mean()),
         max_abs_du=max_abs_du,
-        rel_du=max_abs_du / float(b["u"][:, agree].abs().mean()),
+        rel_du=_relative(max_abs_du, float(b["u"][:, agree].abs().mean())),
     )
 
 
 def setup_problem(mpc, state, x, dtype):
-    dp = pt.default_single_params(dtype, x.device)
+    dp = mpc.model.params_type().to(dtype, x.device)
     st = pt.MPCState(state.previous_solution.to(dtype), state.warm)
     problem, Z0 = lanes._prepare(mpc, st, x.to(dtype), dp)
     return problem, Z0
 
 
-def compare(mpc, state, x, nudge=False):
+def compare(mpc, state, x, nudge=None):
     """Kernel 1 (one launch, n_iter iterations) against the plain version
     (n_iter calls of fused_iteration_reference) on the problem of one tick,
     both on the card in f32; n_iter launches of one iteration against the
     one launch; and both f32 results against the plain version in f64 (the
     accuracy f32 allows). With ``nudge``, also the plain version against
-    itself with the initial controls moved by one ulp: the rounding-noise
-    floor of the termination decisions."""
+    itself with its initial guess moved by one ulp: the rounding-noise
+    floor of the termination decisions. ``nudge="u"`` moves the controls;
+    ``"xs+u"`` also the shooting states, for a cold start whose controls
+    are all 0 (a one-ulp move of 0 changes no decision)."""
     config = mpc.nls_config
     n_iter = config.max_iterations
 
@@ -439,14 +568,18 @@ def compare(mpc, state, x, nudge=False):
         kernel_err=quantiles(ck), plain_err=quantiles(cp),
     )
     if nudge:
-        u1 = torch.nextafter(carry0[1], torch.full_like(carry0[1], math.inf))
-        cn, tn = _plain_solve(args, (carry0[0], u1) + carry0[2:], n_iter)
+        def up(t):
+            return torch.nextafter(t, torch.full_like(t, math.inf))
+
+        xs1 = up(carry0[0]) if nudge == "xs+u" else carry0[0]
+        cn, tn = _plain_solve(args, (xs1, up(carry0[1])) + carry0[2:],
+                              n_iter)
         out["plain_vs_nudged_plain"] = _agreement(path_of(cn, tn),
                                                   path_of(cp, tp))
     return out
 
 
-def check_compare(tag, r, gate, card):
+def check_compare(tag, r, gate, card, phase=None, floor=None):
     """The agreement gates; every problem also needs the split launches
     identical to the single launch.
 
@@ -460,17 +593,41 @@ def check_compare(tag, r, gate, card):
       one-ulp nudge of its initial controls. The termination decisions of
       converged warm starts sit at f32 rounding noise: even the plain
       version disagrees with itself there.
+    * ``"floor"`` (the double's and triple's cold starts): the noise gate
+      against the plain version's agreement with itself after a one-ulp
+      nudge of its shooting states and controls (``floor``, or measured in
+      ``r``); over the agreeing instances max |du| / mean |u| at most
+      max(1e-3, twice the plain version's against its nudged self); and
+      the strict gate's accuracy against f64. Their line-search decisions,
+      and their controls along the flat directions of the soft terminal
+      costs, sit at f32 rounding noise from the first tick (PERF.md,
+      section 6).
     """
-    print(f"[{tag}] kernel vs plain: {json.dumps(r)}  ({card})", flush=True)
+    head = f"[{phase}] {tag}" if phase else f"[{tag}]"
+    print(f"{head} kernel vs plain: {json.dumps(r)}  ({card})", flush=True)
     ident = r["identical_fraction"]
+    v = r["vs_f64"]
+    if floor is None:
+        floor = r.get("plain_vs_nudged_plain")
     if gate == "noise":
-        ok = ident >= r["plain_vs_nudged_plain"]["identical_fraction"] - 0.02
+        ok = ident >= floor["identical_fraction"] - 0.02
+    elif gate == "floor":
+        ok = (floor_ok(r, floor)
+              and v["kernel_err"]["p999"] <= 2 * v["plain_err"]["p999"])
     else:
-        v = r["vs_f64"]
         ok = (ident >= 0.999 and r["rel_du"] <= 1e-3
               and v["kernel_err"]["p999"] <= 2 * v["plain_err"]["p999"])
     if not (ok and r["split_launch_identical"]):
-        raise SystemExit(f"[{tag}] kernel disagrees with its plain version")
+        raise SystemExit(f"{head} kernel disagrees with its plain version")
+
+
+def floor_ok(r, floor):
+    """``r`` (an ``_agreement``) against the plain version's agreement
+    with itself after a one-ulp nudge: the same-path share within 2 points
+    of it, and max |du| / mean |u| over the agreeing instances at most
+    max(1e-3, twice its)."""
+    return (r["identical_fraction"] >= floor["identical_fraction"] - 0.02
+            and r["rel_du"] <= max(1e-3, 2 * floor["rel_du"]))
 
 
 def kernel1_ops(st, args, carry, traces):
@@ -505,6 +662,290 @@ def n_failed(res_list):
     return int(failed.sum())
 
 
+# ------------------------------------------------------- double and triple
+def multilink_mpc(model):
+    return pt.make_mpc(pt.OptimizationParams(**MULTILINK_KWARGS), model)
+
+
+def cold_state(mpc, B, dev):
+    return pt.MPCState(
+        previous_solution=torch.zeros((B, mpc.spec.dim), device=dev),
+        warm=torch.zeros((B,), dtype=torch.bool, device=dev))
+
+
+def check_multilink_kernels(model, dev, card):
+    """[segment_jac <model>] and [kernel 1 <model>]: both kernels against
+    their plain versions at the regime's width (R = S x B columns of sp = 5
+    steps, and one and SPMAX steps; a ragged R; the cold-start shooting
+    problem; kernel 1 on the cold problem at B and at a ragged batch).
+    Returns the cold problem's kernel-2 inputs and the largest errors."""
+    mpc = multilink_mpc(model)
+    B, h = BATCH, mpc.params.control_dt
+    S, sp = mpc.spec.num_states - 1, mpc.spec.spacing
+    R = S * B
+    check_segment_jac("random columns, seed 0", segment_inputs_random(
+        R, sp, dev, model=model), h, card, model)
+    check_segment_jac("random columns, ragged", segment_inputs_random(
+        R - 3, sp, dev, seed=1, model=model), h, card, model)
+    for n_steps in (1, pk.SPMAX):
+        check_segment_jac(f"random columns, sp={n_steps}",
+                          segment_inputs_random(R, n_steps, dev, seed=2,
+                                                model=model), h, card, model)
+    x0 = torch.as_tensor(make_x0s(model.name, B), dtype=torch.float32,
+                         device=dev)
+    cold = cold_state(mpc, B, dev)
+    seg_cold = segment_inputs_problem(*setup_problem(mpc, cold, x0,
+                                                     torch.float64))
+    seg_err = check_segment_jac("cold-start shooting problem", seg_cold, h,
+                                card, model)
+    phase = f"kernel 1 {model.name}"
+    r_cold = compare(mpc, cold, x0, nudge="xs+u")
+    check_compare("cold, tick 0", r_cold, "floor", card, phase)
+    floor = r_cold["plain_vs_nudged_plain"]
+    # The ragged batch is the cold problem less its last instances: its
+    # floor is the cold problem's.
+    r_ragged = compare(mpc, pt.MPCState(cold.previous_solution[:RAGGED],
+                                        cold.warm[:RAGGED]), x0[:RAGGED])
+    check_compare(f"cold, tick 0, ragged batch {RAGGED}", r_ragged, "floor",
+                  card, phase, floor)
+    return dict(seg_cold=seg_cold, seg_err=seg_err,
+                k1_err=max(r_cold["max_abs_du"], r_ragged["max_abs_du"]),
+                floor=floor)
+
+
+def run_loop(tag, model, mpc, fn, ticks, fused_flag, card):
+    """Drive ``fn()`` (a closed loop of ``ticks`` ticks) with the launch
+    counts set to 0 just before and read just after; check that it ran one
+    kernel-1 launch a tick on path 1 and one kernel-2 launch a GN iteration
+    on path 2 and nothing else, and that every state and control is finite.
+    Returns ``(result, seconds, launches, n_failed, fraction_upright)``."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = counts()
+    failed = n_failed([res])
+    up = upright_fraction(res.final_state.cpu().numpy(), model.angle_indices)
+    finite = bool(torch.isfinite(res.states).all()
+                  and torch.isfinite(res.controls).all()
+                  and torch.isfinite(res.final_state).all())
+    print(f"[{tag}] fused={fused_flag}, {ticks} ticks x batch "
+          f"{res.states.shape[0]}: {secs:.2f} s, launches {n}, n_failed "
+          f"{failed}, fraction_upright {up:.4f}, finite {finite}  ({card})",
+          flush=True)
+    want = ({"fused_iteration": ticks, "segment_jac": 0} if fused_flag else
+            {"fused_iteration": 0,
+             "segment_jac": ticks * mpc.nls_config.max_iterations})
+    if n != want:
+        raise SystemExit(f"[{tag}] launches {n}, not {want}")
+    if not finite:
+        raise SystemExit(f"[{tag}] non-finite states or controls")
+    return res, secs, n, failed, up
+
+
+def upright_witness():
+    """The JAX package's upright share of the double's regime, tick by
+    tick (``UPRIGHT_WITNESS``)."""
+    with open(UPRIGHT_WITNESS) as f:
+        w = json.load(f)
+    if w["schedule"][0] != list(DOUBLE_SCHEDULE[0]):
+        raise SystemExit(f"[double] {UPRIGHT_WITNESS} ran another "
+                         f"transient: {w['schedule'][0]}")
+    return w
+
+
+def check_upright_curve(res, model, card):
+    """The port's upright share at each of ``UPRIGHT_CHECKPOINTS`` against
+    the JAX package's (``upright_witness``): within ``UPRIGHT_SIGMAS``
+    standard deviations of the difference of two binomial shares of their
+    batches. Also prints the port's share over the witness's instances
+    (the same initial states)."""
+    w = upright_witness()
+    states = torch.cat([res.states, res.final_state[:, None]], 1)
+    angles = states[..., list(model.angle_indices)].cpu().numpy()
+    up = np.all(_upright_error(angles) < 0.1, axis=-1)  # (B, T + 1)
+    n_port, n_ref = up.shape[0], w["batch"]
+    rows, ok = [], True
+    for t in UPRIGHT_CHECKPOINTS:
+        p_ref, p_port = w["upright_by_tick"][t], float(up[:, t].mean())
+        q = min(max(p_ref, 1 / n_ref), 1 - 1 / n_ref)
+        tol = UPRIGHT_SIGMAS * math.sqrt(q * (1 - q)
+                                         * (1 / n_ref + 1 / n_port))
+        ok &= abs(p_port - p_ref) <= tol
+        rows.append(dict(tick=t, port=p_port,
+                         port_same_states=float(up[:n_ref, t].mean()),
+                         jax_cpu=p_ref, tol=tol))
+    print(f"[double] upright share by tick, the port (batch {n_port}) "
+          f"against the JAX package's lanes loop (CPU, f32, the first "
+          f"{n_ref} of the same states; {w['script']}), gate |port - jax| "
+          f"<= {UPRIGHT_SIGMAS:g} sigma: {json.dumps(rows)}  ({card})",
+          flush=True)
+    if not ok:
+        raise SystemExit("[double] the upright share departs from the JAX "
+                         "package's")
+
+
+def run_double(dev, card, floor):
+    """[double]: bench.py's double-pole outcome run on path 1 through
+    ``run_scheduled_closed_loop`` (its first 100 ticks), with its upright
+    share tick by tick against the JAX package's; then the first ticks of
+    the same schedule on path 2, and [cross] path 2 against path 1 on the
+    cold problem, against ``floor``: the plain version's agreement with
+    itself on that problem after a one-ulp nudge
+    (``check_multilink_kernels``)."""
+    model = pt.DOUBLE_CARTPOLE
+    mpc = multilink_mpc(model)
+    B = BATCH
+    dp = model.params_type().to(torch.float32, dev)
+    x0 = torch.as_tensor(make_x0s("double", B), dtype=torch.float32,
+                         device=dev)
+    ticks = sum(n for n, _ in DOUBLE_SCHEDULE)
+    res, secs, n1, failed, up = run_loop(
+        "double", model, mpc, lambda: pt.run_scheduled_closed_loop(
+            mpc, x0, dp, DOUBLE_SCHEDULE, layout="lanes", fused=True),
+        ticks, True, card)
+    print(f"[double] schedule {json.dumps(DOUBLE_SCHEDULE)}: "
+          f"fraction_upright {up:.4f}, n_failed {failed} (gate <= "
+          f"{DOUBLE_MAX_FAILED}); the JAX bench's 250-tick run of this "
+          f"regime: {json.dumps(DOUBLE_REFERENCE)} (TPU v5e, "
+          f"BENCH_r05.json); outcomes, not times  ({card})", flush=True)
+    if failed > DOUBLE_MAX_FAILED:
+        raise SystemExit("[double] n_failed out of bounds")
+    check_upright_curve(res, model, card)
+    first = ((TICKS_DOUBLE_PATH2, DOUBLE_SCHEDULE[0][1]),)
+    res2, secs2, n2, _, _ = run_loop(
+        "double", model, mpc, lambda: pt.run_scheduled_closed_loop(
+            mpc, x0, dp, first, layout="lanes", fused=False),
+        TICKS_DOUBLE_PATH2, False, card)
+
+    problem32, Z0_32 = setup_problem(mpc, cold_state(mpc, B, dev), x0,
+                                     torch.float32)
+    cfg = mpc.nls_config
+    Za, oa = lanes._solve_lanes(problem32, Z0_32, cfg, fused=False)
+    Zb, ob = lanes._solve_lanes(problem32, Z0_32, cfg, fused=True)
+    cross = _agreement(path_of_outputs(Za, oa), path_of_outputs(Zb, ob))
+    print(f"[cross] double: path 2 vs path 1, cold start, batch {B}, f32: "
+          f"{json.dumps(cross)}; the plain version against itself after a "
+          f"one-ulp nudge: {json.dumps(floor)}  ({card})", flush=True)
+    if not floor_ok(cross, floor):
+        raise SystemExit("[cross] double: path 2 disagrees with path 1")
+    return dict(mpc=mpc, dp=dp, res=res, secs=secs, ticks=ticks, n1=n1,
+                res2=res2, secs2=secs2, n2=n2)
+
+
+def run_triple(dev, card):
+    """[triple]: path 1 and path 2 from bench.py's perturbed-upright
+    triple-pole states. No upright gate: these perturbations lie outside
+    this configuration's region of attraction (tests/test_triple.py)."""
+    model = pt.TRIPLE_CARTPOLE
+    mpc = multilink_mpc(model)
+    dp = model.params_type().to(torch.float32, dev)
+    x0 = torch.as_tensor(make_x0s("triple", BATCH), dtype=torch.float32,
+                         device=dev)
+    res, secs, n1, _, _ = run_loop(
+        "triple", model, mpc, lambda: pt.run_closed_loop_lanes(
+            mpc, x0, dp, TICKS_TRIPLE, fused=True), TICKS_TRIPLE, True, card)
+    res2, secs2, n2, _, _ = run_loop(
+        "triple", model, mpc, lambda: pt.run_closed_loop_lanes(
+            mpc, x0, dp, TICKS_TRIPLE_PATH2, fused=False),
+        TICKS_TRIPLE_PATH2, False, card)
+    return dict(mpc=mpc, dp=dp, res=res, secs=secs, ticks=TICKS_TRIPLE,
+                n1=n1, res2=res2, secs2=secs2, n2=n2)
+
+
+def time_multilink(model, run, checks, card, median_ticks=3):
+    """[timing] of one model: kernel 1 per solve on the warm problem after
+    path 1's last tick and kernel 2 per launch on the cold problem (device
+    time), their bounds on this run's data, their plain versions, the
+    launch layouts, launches per tick and the median path-1 tick. Returns
+    the two entries of the kernels line."""
+    mpc, dp, res = run["mpc"], run["dp"], run["res"]
+    cfg, B = mpc.nls_config, BATCH
+    h, angle = mpc.params.control_dt, model.angle_indices
+    ms = []
+    x, mst = res.final_state, res.final_mpc_state
+    for _ in range(median_ticks):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r1 = pt.run_closed_loop_lanes(mpc, x, dp, 1, mpc_state=mst,
+                                      fused=True)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        x, mst = r1.final_state, r1.final_mpc_state
+    med_tick = float(np.median(ms))
+    prof = profile_ticks(mpc, dp, x, mst, True)
+
+    problem_w, Z0_w = lanes._prepare(mpc, res.final_mpc_state,
+                                     res.final_state, dp)
+    st = problem_w.statics.fused
+    wargs = (st, dp, problem_w.x_current, problem_w.set_point,
+             problem_w.u_prev)
+    carry_w = lanes._init_carry(Z0_w, cfg)
+    k1_t = device_ms({"warm": lambda: fused.fused_solve(
+        *wargs, carry_w, cfg.max_iterations)}, reps=5)
+    k1_ms = k1_t["warm"][0]
+    k1_plain = time_cuda(
+        lambda: _plain_solve(wargs, carry_w, cfg.max_iterations), 1,
+        warmup=False)
+    _, _, _, io = fused.kernel_io(*wargs, *carry_w, cfg.max_iterations)
+    k1_bytes = sum(t.numel() * t.element_size() for t in io.values())
+    del io
+    _, t_w = fused.fused_solve(*wargs, carry_w, cfg.max_iterations)
+    k1_ops = kernel1_ops(st, wargs, carry_w, t_w)
+    k1_bound, k1_by = bound(k1_bytes, k1_ops)
+    occ = fused.kernel_occupancy(st, B)
+
+    seg32 = tuple(t.float() for t in checks["seg_cold"])
+    R, sp = seg32[1].shape[1], seg32[2].shape[0]
+    k2_t = device_ms({"cold": lambda: pk.segment_jac_batch_last(
+        *seg32, h, angle, model)})
+    k2_ms = k2_t["cold"][0]
+    k2_plain = time_cuda(lambda: pk.segment_jac_batch_last_reference(
+        *seg32, h, angle, model), 3)
+    outs = pk.segment_jac_batch_last(*seg32, h, angle, model)
+    k2_bytes = sum(t.numel() * t.element_size() for t in seg32 + outs)
+    k2_ops = count_ops(lambda: pk.segment_jac_batch_last_reference(
+        *seg32, h, angle, model))
+    k2_bound, k2_by = bound(k2_bytes, k2_ops)
+    occ2 = pk.kernel_occupancy(R, sp, model=model)
+    name = model.name
+    ticks2 = run["n2"]["segment_jac"] // cfg.max_iterations
+    print(f"[timing] {name}: path 1 {run['ticks']} ticks in "
+          f"{run['secs']:.2f} s, median tick {med_tick:.2f} ms "
+          f"({median_ticks} single ticks), "
+          f"{run['n1']['fused_iteration'] / run['ticks']:.0f} kernel-1 "
+          f"launch a tick; path 2 {ticks2} ticks in {run['secs2']:.2f} s, "
+          f"{run['n2']['segment_jac'] / ticks2:.0f} kernel-2 launches a "
+          f"tick; one warm path-1 tick under torch.profiler: "
+          f"{json.dumps(prof)}  ({card})", flush=True)
+    print(f"[timing] {name}: kernel 1 {k1_ms:.3f} ms/solve (device time, "
+          f"least {k1_t['warm'][1]:.3f}; warm problem after path 1's last "
+          f"tick; bound {k1_bound:.4f} ms by {k1_by}: {k1_bytes} B, "
+          f"{k1_ops:.4e} ops), plain version {k1_plain:.3f} ms; layout "
+          f"{json.dumps(occ)}  ({card})", flush=True)
+    print(f"[timing] {name}: kernel 2 {k2_ms:.4f} ms/launch (device time, "
+          f"least {k2_t['cold'][1]:.4f}; cold problem, R={R}, sp={sp}; "
+          f"bound {k2_bound:.5f} ms by {k2_by}: {k2_bytes} B, "
+          f"{k2_ops:.4e} ops), plain version {k2_plain:.3f} ms; layout "
+          f"{json.dumps(occ2)}  ({card})", flush=True)
+    return [
+        {"name": f"fused_iteration:{name}", "route": "cuda",
+         "source": "cartpole_tpu_torch/csrc/fused_iteration_launch.cuh",
+         "replaces": "cartpole_tpu/ops/fused.py:938",
+         "launches": run["n1"]["fused_iteration"],
+         "max_abs_err": checks["k1_err"], "ms": k1_ms, "plain_ms": k1_plain,
+         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None},
+        {"name": f"segment_jac:{name}", "route": "cuda",
+         "source": "cartpole_tpu_torch/csrc/segment_jac_launch.cuh",
+         "replaces": "cartpole_tpu/ops/pallas_kernels.py:189",
+         "launches": run["n2"]["segment_jac"],
+         "max_abs_err": checks["seg_err"], "ms": k2_ms, "plain_ms": k2_plain,
+         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
+    ]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -518,40 +959,26 @@ def run(dev) -> int:
     # ---------------------------------------------------------------- device
     card = _card()
     print(f"card: {card}", flush=True)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    t_start = time.perf_counter()
+
+    def elapsed(phases):
+        print(f"[elapsed] {time.perf_counter() - t_start:.1f} s after "
+              f"{phases}", flush=True)
 
     # ----------------------------------------------------------------- build
     t0 = time.perf_counter()
     path, log = _build.build_library()
     _build.load_library()
     build_s = time.perf_counter() - t0
-    print(f"[build] {build_s:.1f} s -> {os.path.relpath(path)}", flush=True)
+    print(f"[build] {build_s:.1f} s -> {os.path.relpath(path)}; seconds "
+          f"per source: {' '.join(re.findall(r'^== (.*)$', log, re.M))}",
+          flush=True)
     if not log:
         print("[build] the library was built before: no ptxas report",
               flush=True)
-    entries = ptxas_entries(log)
-    for e in entries:
-        if e["kernel"] == "fused_iteration":
-            print(f"[build] kernel 1 (fused_iteration, "
-                  f"{fused.LANES_PER_INSTANCE} lanes per instance): "
-                  f"{e['registers']} registers; {e['stack']} B stack frame, "
-                  f"{e['spill']} B spill stores", flush=True)
-    for dtype in ("f32", "f64") if log else ():
-        k2 = [e for e in entries
-              if e["kernel"] == "segment_jac" and e["dtype"] == dtype]
-        if len(k2) != pk.SPMAX:
-            raise SystemExit(f"[build] {len(k2)} {dtype} kernel-2 entries "
-                             f"in the ptxas log, not {pk.SPMAX}")
-        main_sp = next(e for e in k2 if e["sp"] == 5)
-        print(f"[build] kernel 2 (segment_jac, {dtype}, one thread per "
-              f"column, sp=5): {main_sp['registers']} registers; "
-              f"{main_sp['stack']} B stack frame, {main_sp['spill']} B "
-              f"spill stores; over sp=1..{pk.SPMAX}: "
-              f"{min(e['registers'] for e in k2)}-"
-              f"{max(e['registers'] for e in k2)} registers, stack frames "
-              f"up to {max(e['stack'] for e in k2)} B, spill stores up to "
-              f"{max(e['spill'] for e in k2)} B", flush=True)
-        if dtype == "f32" and any(e["spill"] for e in k2):
-            raise SystemExit("[build] kernel 2 spills in f32")
+    if log:
+        build_report(ptxas_entries(log))
 
     B = BATCH
     mpc = pt.make_mpc(pt.OptimizationParams(
@@ -559,27 +986,25 @@ def run(dev) -> int:
     cfg = mpc.nls_config
     h, angle = mpc.params.control_dt, mpc.model.angle_indices
     dp = pt.default_single_params(torch.float32, dev)
-    x0 = torch.as_tensor(bench_x0s(B), dtype=torch.float32, device=dev)
-    cold = pt.MPCState(
-        previous_solution=torch.zeros((B, mpc.spec.dim), device=dev),
-        warm=torch.zeros((B,), dtype=torch.bool, device=dev),
-    )
+    x0 = torch.as_tensor(make_x0s("single", B), dtype=torch.float32,
+                         device=dev)
+    cold = cold_state(mpc, B, dev)
 
     # ---------------------------------------- kernel 2 vs its plain version
     S, sp = mpc.spec.num_states - 1, mpc.spec.spacing
     R = S * B
     check_segment_jac("random columns, seed 0",
-                      segment_inputs_random(R, sp, dev), h, angle, card)
+                      segment_inputs_random(R, sp, dev), h, card)
     check_segment_jac("random columns, ragged", segment_inputs_random(
-        RAGGED_COLUMNS, sp, dev, seed=1), h, angle, card)
+        RAGGED_COLUMNS, sp, dev, seed=1), h, card)
     for n_steps in (1, pk.SPMAX):
         check_segment_jac(f"random columns, sp={n_steps}",
                           segment_inputs_random(R, n_steps, dev, seed=2), h,
-                          angle, card)
+                          card)
     problem_c, Z0_c = setup_problem(mpc, cold, x0, torch.float64)
     seg_cold = segment_inputs_problem(problem_c, Z0_c)
     seg_err = check_segment_jac("cold-start shooting problem", seg_cold, h,
-                                angle, card)
+                                card)
     rest = segment_inputs_random(R, sp, dev)
     rest_x = torch.zeros_like(rest[1])
     rest_x[1] = -math.pi / 2
@@ -598,6 +1023,8 @@ def run(dev) -> int:
                                         cold.warm[:RAGGED]), x0[:RAGGED])
     check_compare(f"cold, tick 0, ragged batch {RAGGED}", r_ragged, "strict",
                   card)
+
+    elapsed("the single's kernel checks")
 
     # ------------------------------------------------------ path 1 (fused)
     # Two calls carrying (plant state, MPCState), as bench.py chains its
@@ -626,7 +1053,7 @@ def run(dev) -> int:
     # ---------------------------------------- kernel 1, warm-start problems
     r_warm = compare(mpc, res1.final_mpc_state, res1.final_state)
     check_compare("warm, tick 1", r_warm, "strict", card)
-    r_end = compare(mpc, res.final_mpc_state, res.final_state, nudge=True)
+    r_end = compare(mpc, res.final_mpc_state, res.final_state, nudge="u")
     check_compare(f"warm, tick {TICKS}", r_end, "noise", card)
 
     # ------------------------------------------- disturbed run on path 1
@@ -656,6 +1083,8 @@ def run(dev) -> int:
     if failed_d or not finite_d or shown < 0.99 or up_d < 0.99:
         raise SystemExit("[disturbed] failed")
 
+    elapsed("path 1 and the disturbed run")
+
     # ---------------------------------------------------- path 2 (XLA body)
     torch.cuda.synchronize()
     reset_counts()
@@ -684,7 +1113,7 @@ def run(dev) -> int:
     seg_warm = segment_inputs_problem(problem2, Z02)
     seg_err = max(seg_err, check_segment_jac(
         f"warm linearization after tick {TICKS_PATH2} of path 2", seg_warm,
-        h, angle, card))
+        h, card))
 
     # ------------------------------------------- path 2 against path 1
     problem32, Z0_32 = setup_problem(mpc, cold, x0, torch.float32)
@@ -706,8 +1135,20 @@ def run(dev) -> int:
             and cross["u_identical_under_high_precision_setting"]):
         raise SystemExit("[cross] path 2 disagrees with path 1")
 
+    elapsed("path 2 and cross")
+
+    # ------------------------------------------ the double and triple poles
+    checks_d = check_multilink_kernels(pt.DOUBLE_CARTPOLE, dev, card)
+    run_d = run_double(dev, card, checks_d["floor"])
+    elapsed("the double's phases")
+    checks_t = check_multilink_kernels(pt.TRIPLE_CARTPOLE, dev, card)
+    run_t = run_triple(dev, card)
+    elapsed("the triple's phases")
+    multilink = {pt.DOUBLE_CARTPOLE: (checks_d, run_d),
+                 pt.TRIPLE_CARTPOLE: (checks_t, run_t)}
+
     # --------------------------------------------------------------- timings
-    def median_tick(fused_flag, x, mst, n=20):
+    def median_tick(fused_flag, x, mst, n=MEDIAN_TICKS):
         ms = []
         for _ in range(n):
             torch.cuda.synchronize()
@@ -782,7 +1223,8 @@ def run(dev) -> int:
     n_it = cfg.max_iterations
     print(f"[timing] path 1: solves/s {B * TICKS / loop_s:.1f} ({TICKS} "
           f"ticks); ms/tick mean {loop_s / TICKS * 1e3:.2f}, median "
-          f"{med_tick:.2f} (20 single ticks); kernel 1 {kern_ms:.3f} "
+          f"{med_tick:.2f} ({MEDIAN_TICKS} single ticks); kernel 1 "
+          f"{kern_ms:.3f} "
           f"ms/solve (device time, least {k1_t['warm'][1]:.3f}; 8 "
           f"iterations, 1 launch; bound {k1_bound:.4f} ms by "
           f"{k1_by}: {k1_bytes} B, {k1_ops:.4e} ops), plain version "
@@ -800,7 +1242,8 @@ def run(dev) -> int:
           f"{k1_bound:.4f} ms  ({card})", flush=True)
     print(f"[timing] path 2: solves/s {B * TICKS_PATH2 / loop2_s:.1f} "
           f"({TICKS_PATH2} ticks); ms/tick mean "
-          f"{loop2_s / TICKS_PATH2 * 1e3:.2f}, median {med_tick2:.2f} (20 "
+          f"{loop2_s / TICKS_PATH2 * 1e3:.2f}, median {med_tick2:.2f} "
+          f"({MEDIAN_TICKS} "
           f"single ticks); kernel 2 {k2_ms:.4f} ms/launch (R={R}; bound "
           f"{k2_bound:.4f} ms by {k2_by}: {k2_bytes} B, {k2_ops:.4e} ops), "
           f"plain version {k2_plain_ms:.3f} ms; launches per tick "
@@ -828,6 +1271,11 @@ def run(dev) -> int:
           f"{med_tick2 - n_it * (step_ms + trial_ms):.2f} ms of the "
           f"{med_tick2:.2f} ms median tick  ({card})", flush=True)
 
+    elapsed("the single's timing")
+    extra = []
+    for model, (checks, drove) in multilink.items():
+        extra += time_multilink(model, drove, checks, card)
+        elapsed(f"the {model.name}'s timing")
     print(json.dumps({"kernels": [
         {
             "name": "fused_iteration",
@@ -856,7 +1304,7 @@ def run(dev) -> int:
             "bound_by": k2_by,
             "library_ms": None,
         },
-    ]}))
+    ] + extra}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

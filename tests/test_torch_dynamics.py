@@ -110,7 +110,7 @@ def test_model_wrappers_use_field_order():
         np.testing.assert_allclose(_to_np(a), _to_np(b), rtol=1e-12,
                                    atol=1e-12)
     with pytest.raises(KeyError, match="available"):
-        get_model("double")
+        get_model("quadruple")
 
 
 def test_generated_files_are_current():

@@ -7,15 +7,15 @@ into a buffer laid out as shared memory, a ragged last block, and each
 instance's stages run lane by lane over ``LANES_PER_INSTANCE`` lanes. It is
 compiled here with the system ``g++`` for ``T=double`` and held against
 ``ops/fused.py::fused_iteration_reference`` in f64 at a tiny size, to 1e-9,
-with equal termination codes. Only the ``__global__`` wrapper of
-``csrc/fused_iteration.cu`` is left to run first on the card.
+with equal termination codes, for the single model and for all-soft double
+and triple problems (every terminal row a cost: 6 and 8 rows). Only the
+``__global__`` wrapper of ``csrc/fused_iteration_launch.cuh`` is left to run
+first on the card.
 """
 
 import ctypes
 import dataclasses
-import os
 import shutil
-import subprocess
 
 import numpy as np
 import pytest
@@ -27,14 +27,17 @@ import cartpole_tpu_torch as pt
 from cartpole_tpu_torch.models.params import SingleCartPoleParams
 from cartpole_tpu_torch.mpc.lanes import _init_carry, _prepare
 from cartpole_tpu_torch.ops import fused
+from cartpole_tpu_torch.ops._build import build_host_library
+from cartpole_tpu_torch.ops.pallas_kernels import KERNEL_MODELS
 
-CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "cartpole_tpu_torch", "csrc")
 CARRY = ("xs", "u", "lam", "mu", "merit", "done", "term", "fo")
 TRACES = ("cost", "violation", "lambda", "alpha", "first_order", "applied")
 NO_TERMINAL_ROWS = dict(b_x_final_cost_weight=0.0, th_final_cost_weight=0.0,
                         b_x_dot_final_cost_weight=0.0,
                         th_dot_final_cost_weight=0.0)
+#: The double- and triple-pole regime's terminal weights: all soft.
+ALL_SOFT = dict(th_final_cost_weight=150.0, th_dot_final_cost_weight=10.0,
+                b_x_dot_final_cost_weight=10.0)
 
 
 @pytest.fixture(scope="module")
@@ -42,16 +45,13 @@ def host_lib(tmp_path_factory):
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ is not installed")
-    out = tmp_path_factory.mktemp("fused_host") / "libfused_host.so"
-    subprocess.run(
-        [gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-o", str(out),
-         os.path.join(CSRC, "host_check.cc")],
-        check=True, timeout=300)
-    lib = ctypes.CDLL(str(out))
-    lib.fused_iteration_host_f64.argtypes = [fused._Tensors, fused._ArgsD,
-                                             ctypes.c_int, ctypes.c_int]
+    lib = ctypes.CDLL(build_host_library(
+        str(tmp_path_factory.mktemp("fused_host")), gxx))
+    lib.fused_iteration_host_f64.argtypes = [ctypes.c_int, fused._Tensors,
+                                             fused._ArgsD, ctypes.c_int,
+                                             ctypes.c_int]
     lib.fused_iteration_host_f64.restype = ctypes.c_int
-    lib.fused_workspace_reals.argtypes = [ctypes.c_int] * 7
+    lib.fused_workspace_reals.argtypes = [ctypes.c_int] * 8
     lib.fused_workspace_reals.restype = ctypes.c_int
     lib.fused_statics_reals.argtypes = [ctypes.c_int]
     lib.fused_statics_reals.restype = ctypes.c_int
@@ -67,17 +67,38 @@ def _x0(seed, B):
     return torch.as_tensor(x0)
 
 
+def _multilink_x0(name, seed, B):
+    """Near-upright states of the double or triple pole."""
+    model = pt.get_model(name)
+    rng = np.random.RandomState(seed)
+    n_q = model.state_dim // 2
+    x0 = np.zeros((B, model.state_dim))
+    x0[:, 1:n_q] = np.pi / 2 + rng.uniform(-0.2, 0.2, (B, n_q - 1))
+    x0[:, 0] = rng.uniform(-0.3, 0.3, B)
+    x0[:, n_q + 1:] = rng.uniform(-0.5, 0.5, (B, n_q - 1))
+    return torch.as_tensor(x0)
+
+
 def _problem(case):
     """(fused_solve args, initial carry, config) of one tiny f64 problem.
 
     ``ragged_batch`` leaves the last block of instances part full,
     ``window_33`` has K beyond one pass of 32 lanes and not a multiple of
-    it, ``no_terminal_rows`` has n_all = 0 (the other cases have the
-    default four terminal rows), and ``frozen_at_start`` has two instances
-    done before the first iteration."""
+    it, ``no_terminal_rows`` has n_all = 0 (the other single cases have the
+    default four terminal rows), ``frozen_at_start`` has two instances
+    done before the first iteration, and ``double_all_soft`` and
+    ``triple_all_soft`` are those models with every terminal row a cost,
+    ``double_warm`` the double's after two ticks."""
     kw = dict(window_length=10, state_spacing=2, max_iterations=8)
     B = 4
     dp = pt.default_single_params(torch.float64, device="cpu")
+    model, x0 = pt.SINGLE_CARTPOLE, None
+    if case in ("double_all_soft", "double_warm", "triple_all_soft"):
+        model = pt.get_model(case.split("_")[0])
+        dp = model.params_type().to(torch.float64, "cpu")
+        kw.update(ALL_SOFT, u_guess_sinusoid_amplitude=5.0)
+        B = fused.INSTANCES_PER_BLOCK + 1
+        x0 = _multilink_x0(model.name, 8, B)
     if case == "bench_window":
         kw.update(window_length=40, state_spacing=5)
     if case == "per_instance_params":
@@ -94,11 +115,12 @@ def _problem(case):
         kw.update(window_length=33, state_spacing=3)
     if case == "no_terminal_rows":
         kw.update(NO_TERMINAL_ROWS)
-    mpc = pt.make_mpc(pt.OptimizationParams(**kw))
-    x0 = _x0(7, B)
+    mpc = pt.make_mpc(pt.OptimizationParams(**kw), model)
+    if x0 is None:
+        x0 = _x0(7, B)
     st = pt.MPCState(torch.zeros((B, mpc.spec.dim), dtype=torch.float64),
                      torch.zeros((B,), dtype=torch.bool))
-    if case == "warm":
+    if case in ("warm", "double_warm"):
         res = pt.run_closed_loop_lanes(mpc, x0, dp, 2, fused=True)
         x0, st = res.final_state, res.final_mpc_state
     problem, Z0 = _prepare(mpc, st, x0, dp, 0.1)
@@ -118,7 +140,8 @@ def _host_solve(lib, args, carry, n_iter, lanes=fused.LANES_PER_INSTANCE,
     ptrs, c, tr, keep = fused.kernel_io(*args, *carry, n_iter)
     B = carry[1].shape[-1]
     rc = lib.fused_iteration_host_f64(
-        ptrs, fused.kernel_args(args[0], B, n_iter, double=True), lanes,
+        KERNEL_MODELS.index(args[0].model), ptrs,
+        fused.kernel_args(args[0], B, n_iter, double=True), lanes,
         instances)
     assert rc == 0
     del keep
@@ -126,7 +149,8 @@ def _host_solve(lib, args, carry, n_iter, lanes=fused.LANES_PER_INSTANCE,
 
 
 CASES = ("cold", "warm", "per_instance_params", "u_limit_40", "bench_window",
-         "ragged_batch", "window_33", "no_terminal_rows", "frozen_at_start")
+         "ragged_batch", "window_33", "no_terminal_rows", "frozen_at_start",
+         "double_all_soft", "double_warm", "triple_all_soft")
 
 
 @pytest.fixture(scope="module")
@@ -178,6 +202,8 @@ def test_cases_cover_the_shapes(solves):
         fused.INSTANCES_PER_BLOCK != 0
     assert st["no_terminal_rows"].n_tc + st["no_terminal_rows"].n_t == 0
     assert st["cold"].n_tc + st["cold"].n_t == 4
+    assert (st["double_all_soft"].n_tc, st["double_all_soft"].n_t) == (6, 0)
+    assert (st["triple_all_soft"].n_tc, st["triple_all_soft"].n_t) == (8, 0)
     assert st["window_33"].K % 32 != 0 and st["window_33"].K > 32
     applied = solves["frozen_at_start"][1][1][5].numpy()
     assert (applied[:, 1::2] == 0).all() and (applied[0, 0::2] == 1).all()
@@ -220,9 +246,9 @@ def test_workspace_layout_matches_the_kernel(host_lib, solves):
         st = solves[case][2][0][0]
         for lanes in (8, 16, 32):
             assert fused.workspace_reals(st, lanes) == \
-                host_lib.fused_workspace_reals(st.K, st.N, st.S, st.n_u,
-                                               st.n_tc + st.n_t, st.n_ls,
-                                               lanes)
+                host_lib.fused_workspace_reals(
+                    KERNEL_MODELS.index(st.model), st.K, st.N, st.S, st.n_u,
+                    st.n_tc + st.n_t, st.n_ls, lanes)
         assert fused.statics_reals(st) == host_lib.fused_statics_reals(st.K)
     st = solves["bench_window"][2][0][0]
     assert fused.workspace_reals(st) * 4 < 8 * 1024
@@ -242,3 +268,18 @@ def test_check_sizes_raises_where_shared_memory_runs_out(solves):
                        f"{fused.SMEM_BLOCK_MAX} B"):
         fused.check_sizes(big)
     fused.check_sizes(st)
+
+
+def test_model_ids_name_kernel_models(host_lib, monkeypatch):
+    """The library's model ids name KERNEL_MODELS in order; a table that
+    lists the models in another order is refused at load."""
+    from cartpole_tpu_torch.ops import _build
+
+    _build.check_models(host_lib)
+    monkeypatch.setattr(_build, "KERNEL_MODELS", ("double", "single",
+                                                  "triple"))
+    with pytest.raises(RuntimeError, match="model ids"):
+        _build.check_models(host_lib)
+    monkeypatch.setattr(_build, "KERNEL_MODELS", ("single", "double"))
+    with pytest.raises(RuntimeError, match="model ids"):
+        _build.check_models(host_lib)
