@@ -30,8 +30,8 @@ def params_from_numpy(d: dict, device="cuda", dtype=torch.float64,
 
 def mpc_state_from_numpy(previous_solution, warm, device="cuda",
                          dtype=torch.float64) -> MPCState:
-    """Batched warm-start state: ``previous_solution`` ``(B, dim)``,
-    ``warm`` ``(B,)`` bool."""
+    """Warm-start state: a batch's (``previous_solution`` ``(B, dim)``,
+    ``warm`` ``(B,)`` bool) or one instance's (``(dim,)`` and a scalar)."""
     return MPCState(
         previous_solution=torch.as_tensor(np.array(previous_solution),
                                           dtype=dtype, device=device),

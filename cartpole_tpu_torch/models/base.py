@@ -35,6 +35,9 @@ class CartPoleModel:
     dynamics_core: Callable[..., Any]
     #: fj(params, x_rows, u) -> (x_dot_rows, J_x_rows, J_u_rows).
     dynamics_jac_core: Callable[..., Any]
+    #: fj(params, x, u) -> (x_dot, J_x, J_u) of one packed state ``(sd,)``:
+    #: the generated analytic Jacobians, packed (``analytic_jacobians``).
+    dynamics_jac: Callable[..., Any]
     #: E(params, x) -> total mechanical energy of packed states.
     energy: Callable[..., Any]
 
@@ -47,6 +50,7 @@ SINGLE_CARTPOLE = CartPoleModel(
     dynamics=_single.single_cartpole_dynamics,
     dynamics_core=_single.single_cartpole_dynamics_core,
     dynamics_jac_core=_single.single_cartpole_dynamics_jac_core,
+    dynamics_jac=_single.single_cartpole_dynamics_jac,
     energy=_single.single_cartpole_energy,
 )
 
@@ -58,6 +62,7 @@ DOUBLE_CARTPOLE = CartPoleModel(
     dynamics=_double.double_cartpole_dynamics,
     dynamics_core=_double.double_cartpole_dynamics_core,
     dynamics_jac_core=_double.double_cartpole_dynamics_jac_core,
+    dynamics_jac=_double.double_cartpole_dynamics_jac,
     energy=_double.double_cartpole_energy,
 )
 
@@ -69,6 +74,7 @@ TRIPLE_CARTPOLE = CartPoleModel(
     dynamics=_triple.triple_cartpole_dynamics,
     dynamics_core=_triple.triple_cartpole_dynamics_core,
     dynamics_jac_core=_triple.triple_cartpole_dynamics_jac_core,
+    dynamics_jac=_triple.triple_cartpole_dynamics_jac,
     energy=_triple.triple_cartpole_energy,
 )
 

@@ -15,12 +15,14 @@ import torch
 
 from . import _double_gen
 from .params import DoubleCartPoleParams
+from .single import pack_jac
 
 __all__ = [
     "STATE_DIM",
     "ANGLE_INDICES",
     "double_cartpole_dynamics",
     "double_cartpole_dynamics_core",
+    "double_cartpole_dynamics_jac",
     "double_cartpole_dynamics_jac_core",
     "double_cartpole_energy",
 ]
@@ -111,6 +113,13 @@ def double_cartpole_dynamics_jac_core(params: DoubleCartPoleParams, x_rows,
     """Rows-out ``(x_dot, J_x, J_u)`` as nested tuples (constant entries are
     Python literals, so chain-rule products against them fold away)."""
     return _double_gen.double_dynamics_jac_core(params.as_tuple(), x_rows, u)
+
+
+def double_cartpole_dynamics_jac(params: DoubleCartPoleParams, x, u):
+    """``(x_dot, J_x, J_u)`` of one state ``x`` ``(6,)``: ``(6,)``,
+    ``(6, 6)``, ``(6,)``, from the generated analytic Jacobians."""
+    return pack_jac(*double_cartpole_dynamics_jac_core(
+        params, tuple(x[i] for i in range(STATE_DIM)), u), like=x[0])
 
 
 def double_cartpole_energy(params: DoubleCartPoleParams, x):

@@ -19,7 +19,9 @@ __all__ = [
     "ANGLE_INDICES",
     "single_cartpole_dynamics",
     "single_cartpole_dynamics_core",
+    "single_cartpole_dynamics_jac",
     "single_cartpole_dynamics_jac_core",
+    "pack_jac",
     "single_cartpole_energy",
 ]
 
@@ -97,6 +99,26 @@ def single_cartpole_dynamics_jac_core(params: SingleCartPoleParams, x_rows,
     """Rows-out ``(x_dot, J_x, J_u)`` as nested tuples (constant entries are
     Python literals, so chain-rule products against them fold away)."""
     return _single_gen.single_dynamics_jac_core(params.as_tuple(), x_rows, u)
+
+
+def pack_jac(x_dot_rows, J_x_rows, J_u_rows, like):
+    """Pack a rows-form ``(x_dot, J_x, J_u)`` into tensors ``(sd,)``, ``(sd,
+    sd)``, ``(sd,)``: the Python literals become tensors through ``e +
+    like * 0.0``, as the reference packs them (``_single_gen.py:175-184``).
+    """
+    zero = like * 0.0
+    return (torch.stack(x_dot_rows),
+            torch.stack([torch.stack([e + zero for e in row])
+                         for row in J_x_rows]),
+            torch.stack([e + zero for e in J_u_rows]))
+
+
+def single_cartpole_dynamics_jac(params: SingleCartPoleParams, x, u):
+    """``(x_dot, J_x, J_u)`` of one state ``x`` ``(4,)``: ``(4,)``, ``(4,
+    4)``, ``(4,)``, from the generated analytic Jacobians (the reference's
+    ``single_cartpole_dynamics_jac``, ``models/single.py:135-152``)."""
+    return pack_jac(*single_cartpole_dynamics_jac_core(
+        params, tuple(x[i] for i in range(STATE_DIM)), u), like=x[0])
 
 
 def single_cartpole_energy(params: SingleCartPoleParams, x):

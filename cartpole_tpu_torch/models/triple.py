@@ -14,12 +14,14 @@ import torch
 
 from . import _triple_gen
 from .params import TripleCartPoleParams
+from .single import pack_jac
 
 __all__ = [
     "STATE_DIM",
     "ANGLE_INDICES",
     "triple_cartpole_dynamics",
     "triple_cartpole_dynamics_core",
+    "triple_cartpole_dynamics_jac",
     "triple_cartpole_dynamics_jac_core",
     "triple_cartpole_energy",
 ]
@@ -67,6 +69,13 @@ def triple_cartpole_dynamics_jac_core(params: TripleCartPoleParams, x_rows,
                                       u):
     """Rows-out ``(x_dot, J_x, J_u)`` as nested tuples."""
     return _triple_gen.triple_dynamics_jac_core(params.as_tuple(), x_rows, u)
+
+
+def triple_cartpole_dynamics_jac(params: TripleCartPoleParams, x, u):
+    """``(x_dot, J_x, J_u)`` of one state ``x`` ``(8,)``: ``(8,)``,
+    ``(8, 8)``, ``(8,)``, from the generated analytic Jacobians."""
+    return pack_jac(*triple_cartpole_dynamics_jac_core(
+        params, tuple(x[i] for i in range(STATE_DIM)), u), like=x[0])
 
 
 def triple_cartpole_energy(params: TripleCartPoleParams, x):

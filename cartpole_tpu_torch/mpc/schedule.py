@@ -1,9 +1,10 @@
 """Phase-scheduled closed loops (counterpart of
 ``cartpole_tpu/mpc/schedule.py``).
 
-:func:`run_scheduled_closed_loop` runs a batched closed loop through a
-schedule of ``(num_ticks, overrides)`` phases. A phase's overrides replace
-``OptimizationParams`` fields (for example a transient
+:func:`run_scheduled_closed_loop` runs a closed loop (one instance, or a
+batch in the lanes layout) through a schedule of ``(num_ticks,
+overrides)`` phases. A phase's overrides replace ``OptimizationParams``
+fields (for example a transient
 ``u_derivative_cost_weight``, which the double-pole bench regime applies
 for its first 50 ticks); the cost weights are static solver structure (the
 u-cost Gram matrix and its eigenbasis), so each distinct override set gets
@@ -23,7 +24,7 @@ from typing import Any, Mapping, Optional, Sequence, Tuple
 
 import torch
 
-from .closed_loop import ClosedLoopResult
+from .closed_loop import ClosedLoopResult, run_closed_loop
 from .controller import MPC, MPCState, make_mpc
 
 __all__ = ["run_scheduled_closed_loop"]
@@ -50,12 +51,13 @@ def _phase_mpc(mpc: MPC, overrides: Optional[Mapping[str, Any]]) -> MPC:
                     mpc.model)
 
 
-def _concat_results(parts: Sequence[ClosedLoopResult]) -> ClosedLoopResult:
-    """One result over the tick axis (axis 1) of every part."""
+def _concat_results(parts: Sequence[ClosedLoopResult],
+                    tick_axis: int) -> ClosedLoopResult:
+    """One result over the tick axis of every part."""
     last = parts[-1]
 
     def cat(name):
-        return torch.cat([getattr(p, name) for p in parts], dim=1)
+        return torch.cat([getattr(p, name) for p in parts], dim=tick_axis)
 
     return ClosedLoopResult(
         final_state=last.final_state,
@@ -81,32 +83,25 @@ def run_scheduled_closed_loop(
     auto_reset: bool = True,
     max_ticks_per_program: int = 50,
 ) -> ClosedLoopResult:
-    """Run a batched closed loop through a schedule of solver-parameter
-    phases.
+    """Run a closed loop through a schedule of solver-parameter phases.
 
     ``schedule`` is a sequence of ``(num_ticks, overrides)``: ``overrides``
     is a dict of ``OptimizationParams`` fields (e.g.
     ``{"u_derivative_cost_weight": 0.8}``) or ``None`` for the base
-    controller. ``x0`` is ``(B, sd)``; each phase runs
-    ``mpc/lanes.py::run_closed_loop_lanes`` with ``fused`` picking the solve
-    body, in chunks of at most ``max_ticks_per_program`` ticks, and the
-    result covers every tick.
+    controller. Each phase runs in chunks of at most
+    ``max_ticks_per_program`` ticks, and the result covers every tick.
 
-    ``layout`` defaults to ``"single"`` as in the reference, and
-    ``"single"`` (one instance through the per-instance closed loop) raises
-    ``NotImplementedError``: that loop is not ported yet; pass
-    ``layout="lanes"``. The
-    reference's ``use_jit`` has no counterpart: the port runs eagerly, and
-    a chunk is a call, not a compiled program.
+    ``layout="single"`` (the default, as in the reference) runs one
+    instance, ``x0`` ``(sd,)``, through
+    ``mpc/closed_loop.py::run_closed_loop``; ``layout="lanes"`` runs a
+    batch, ``x0`` ``(B, sd)``, through ``mpc/lanes.py::run_closed_loop_lanes``
+    with ``fused`` picking the solve body. The reference's ``use_jit`` has
+    no counterpart: the port runs eagerly, and a chunk is a call, not a
+    compiled program.
     """
     from .lanes import run_closed_loop_lanes
 
-    if layout == "single":
-        raise NotImplementedError(
-            "layout='single' needs mpc/closed_loop.py::run_closed_loop, the "
-            "per-instance path (ROADMAP.md queue 1, item 2: the generic "
-            "per-instance path); use layout='lanes'")
-    if layout != "lanes":
+    if layout not in ("single", "lanes"):
         raise ValueError(f"unknown layout {layout!r}")
     if not schedule:
         raise ValueError("schedule must have at least one phase")
@@ -128,10 +123,15 @@ def run_scheduled_closed_loop(
         remaining = n_ticks
         while remaining > 0:
             n = min(remaining, chunk)
-            res = run_closed_loop_lanes(
-                phase_mpc, x, dynamics_params, n, set_point,
-                mpc_state=state, auto_reset=auto_reset, fused=fused)
+            if layout == "lanes":
+                res = run_closed_loop_lanes(
+                    phase_mpc, x, dynamics_params, n, set_point,
+                    mpc_state=state, auto_reset=auto_reset, fused=fused)
+            else:
+                res = run_closed_loop(
+                    phase_mpc, x, dynamics_params, n, set_point,
+                    mpc_state=state, auto_reset=auto_reset)
             parts.append(res)
             x, state = res.final_state, res.final_mpc_state
             remaining -= n
-    return _concat_results(parts)
+    return _concat_results(parts, tick_axis=1 if layout == "lanes" else 0)

@@ -28,7 +28,6 @@ traces.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import dataclasses
 import math
@@ -41,7 +40,7 @@ from ..mpc.problem import _qr_gram_factor
 from .integrate import mod_pi
 from .lanes import rk4_step_rows, segment_rollout_with_jac_rows
 from ._build import KERNEL_MODELS
-from .solver import NLSConfig, NLSTerminationState
+from .solver import NLSConfig, NLSTerminationState, full_f32_matmul
 
 __all__ = ["FusedStatics", "make_fused_statics", "fused_iteration_reference",
            "fused_solve", "fused_supported", "full_f32_matmul"]
@@ -138,34 +137,6 @@ def make_fused_statics(spec, config: NLSConfig, Hu_Q, Hu_eigs, Ju_cost,
         Q=t(Hu_Q), QT=t(Hu_Q.T), eigs=t(Hu_eigs).reshape(K, 1),
         JuT=t(Ju_cost.T), Juc=t(Ju_cost),
     )
-
-
-@contextlib.contextmanager
-def full_f32_matmul():
-    """Run f32 matmuls at full f32 precision (no TF32, no bf16 passes) for
-    the duration, whatever the caller's global setting, and restore that
-    setting on exit, as the reference pins HIGHEST precision
-    (mpc/lanes.py:552, ops/fused.py:209-211). Uses the per-backend
-    ``fp32_precision`` settings where torch has them (mixing them with the
-    global getter raises there), else the global one."""
-    backends = [b for b in (torch.backends.cuda.matmul,
-                            torch.backends.mkldnn.matmul)
-                if hasattr(b, "fp32_precision")]
-    if backends:
-        saved = [b.fp32_precision for b in backends]
-        for b in backends:
-            b.fp32_precision = "ieee"
-    else:
-        saved = torch.get_float32_matmul_precision()
-        torch.set_float32_matmul_precision("highest")
-    try:
-        yield
-    finally:
-        if backends:
-            for b, v in zip(backends, saved):
-                b.fp32_precision = v
-        else:
-            torch.set_float32_matmul_precision(saved)
 
 
 def fused_supported(problem, config) -> bool:

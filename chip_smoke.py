@@ -41,7 +41,13 @@ path 1's last tick, kernel 2 on the cold and the warm problem, for every
 model) and a profile of one tick of each single-model path and of the
 double's and triple's path 1 (device-busy share, kernel launches), with
 both kernels' launch layouts (registers, shared bytes per block, resident
-blocks and warps per SM).
+blocks and warps per SM). Then the per-instance group (``MPC.step``,
+``run_closed_loop``, ``vmap``; no kernel of the repo lies on it): oracle
+(the ``lu`` closed loop, f64, against the C++ oracle on the host), swing-up
+(the reference's 250-tick test with its gates), schur, vmap (tick 1 of
+``vmap(MPC.step)`` against path 2 by path, then ``vmap(run_closed_loop)`` at
+the CLI sweep's batch) and their timing (a CUDA-graph replay of a tick and
+an eager tick; a replay profiled once).
 Every kernel launch counter is set to 0 just before a path is driven and
 read just after. Prints the card's name and power limit beside every
 number, one JSON line describing the kernels, and as its last line
@@ -61,6 +67,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -68,6 +75,7 @@ from torch.profiler import ProfilerActivity, profile
 from torch.utils._python_dispatch import TorchDispatchMode
 
 import cartpole_tpu_torch as pt
+from cartpole_tpu_torch.mpc import closed_loop as cl
 from cartpole_tpu_torch.mpc import lanes
 from cartpole_tpu_torch.ops import _build, fused
 from cartpole_tpu_torch.ops import pallas_kernels as pk
@@ -349,20 +357,23 @@ def time_host(fn, reps):
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def profile_ticks(mpc, dp, x, mst, fused_flag, n=1):
-    """``n`` warm ticks under ``torch.profiler``: wall ms, device-busy ms
-    (sum of the kernels', copies' and fills' device time), and kernel
-    launches, per tick. Reads the profiler's raw events: a double-pole
-    tick has ~1M of them, which ``key_averages`` takes a minute or more
-    to aggregate."""
+#: Host calls that launch work on the card, as the profiler names them.
+LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+            "cudaGraphLaunch")
+
+
+def profile_calls(fn, n=1):
+    """``n`` calls of ``fn`` under ``torch.profiler``: wall ms, device-busy
+    ms (sum of the kernels', copies' and fills' device time), launches
+    from the host (a graph replay is one) and operations on the device,
+    per call. Reads the profiler's raw events: a double-pole tick has ~1M
+    of them, which ``key_averages`` takes a minute or more to aggregate."""
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n):
-            r = pt.run_closed_loop_lanes(mpc, x, dp, 1, mpc_state=mst,
-                                         fused=fused_flag)
-            x, mst = r.final_state, r.final_mpc_state
+            fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     events = prof.profiler.kineto_results.events()
@@ -370,16 +381,28 @@ def profile_ticks(mpc, dp, x, mst, fused_flag, n=1):
     dur_us = ((lambda e: e.duration_ns() / 1e3)
               if events and hasattr(events[0], "duration_ns")
               else (lambda e: e.duration_us()))
-    busy_us, launches = 0.0, 0
+    busy_us, launches, device_ops = 0.0, 0, 0
     for e in events:
         if e.device_type() == torch.autograd.DeviceType.CUDA:
             busy_us += dur_us(e)
-        elif e.name() in ("cudaLaunchKernel", "cudaLaunchKernelExC",
-                          "cuLaunchKernel"):
+            device_ops += 1
+        elif e.name() in LAUNCHES:
             launches += 1
     return dict(wall_ms=wall / n, device_busy_ms=busy_us / 1e3 / n,
                 device_idle_share=1 - busy_us / 1e3 / wall,
-                launches=launches / n)
+                launches=launches / n, device_ops=device_ops / n)
+
+
+def profile_ticks(mpc, dp, x, mst, fused_flag, n=1):
+    """``profile_calls`` of ``n`` warm lanes ticks, each from the last."""
+    carry = [x, mst]
+
+    def tick():
+        r = pt.run_closed_loop_lanes(mpc, carry[0], dp, 1,
+                                     mpc_state=carry[1], fused=fused_flag)
+        carry[:] = [r.final_state, r.final_mpc_state]
+
+    return profile_calls(tick, n)
 
 
 # ------------------------------------------------------------- kernel 2
@@ -946,6 +969,298 @@ def time_multilink(model, run, checks, card, median_ticks=3):
     ]
 
 
+# ------------------------------------------------------- per-instance path
+#: The per-instance phases (``MPC.step``, ``run_closed_loop``, ``vmap``):
+#: the JAX package's closed-loop test configuration (tests/test_native.py,
+#: tests/test_closed_loop.py, tests/test_schur.py: window 40, spacing 5, 10
+#: GN iterations, f64, from the hanging pole), and the CLI sweep's (cli.py
+#: ``sweep --layout vmap``: the default params, batch 256, hanging poles
+#: moved by up to 0.3 in b_x and theta from seed 0, f32).
+#: The schur path runs 100 ticks gated on its codes and controls, and the
+#: vmap run 50 ticks, not 250 and 100, to hold the group's time (PERF.md).
+DOWN = (0.0, -math.pi / 2, 0.0, 0.0)
+TICKS_ORACLE, TICKS_SWINGUP, TICKS_SCHUR, TICKS_VMAP = 100, 250, 100, 50
+VMAP_BATCH = 256
+#: tests/test_native.py:145-153: |u - u_oracle| and the states' atol.
+ORACLE_DU, ORACLE_DX = 1e-4, 1e-5
+
+
+def oracle_gate(u, states, u_ref, states_ref):
+    """The port's lu closed loop against the C++ oracle's (numpy arrays):
+    max |du| <= ORACLE_DU and the states within ``np.allclose(...,
+    atol=ORACLE_DX)``, as tests/test_native.py holds the JAX package."""
+    du = float(np.abs(u - u_ref).max())
+    dx = float(np.abs(states - states_ref).max())
+    ok = du <= ORACLE_DU and bool(np.allclose(states, states_ref,
+                                              atol=ORACLE_DX))
+    return dict(max_abs_du=du, max_abs_dx=dx, ok=bool(ok))
+
+
+def health_gate(codes, controls):
+    """No QP_INDEFINITE or MAX_LAMBDA code, and |u| <= 300 (numpy
+    arrays)."""
+    checks = dict(
+        no_failed_solve=not bool(np.any((codes == 3) | (codes == 4))),
+        controls_within_limit=bool(np.all(np.abs(controls)
+                                          <= 300.0 + 1e-12)))
+    return dict(checks, ok=all(checks.values()),
+                max_abs_u=float(np.abs(controls).max()))
+
+
+def swingup_gate(codes, terminal_predictions, final_state, violations,
+                 controls):
+    """The swing-up gates of tests/test_closed_loop.py:44-75 on one run
+    (numpy arrays): ``health_gate``; after tick 20 every terminal
+    prediction upright (theta, b_x_dot and theta_dot within 1e-4) and the
+    violation below 1e-4; the final state upright within 1e-4 / 1e-4 /
+    1e-3."""
+    tp = terminal_predictions[21:]
+    tp_err = max(np.abs(tp[:, 1] - math.pi / 2).max(),
+                 np.abs(tp[:, 2]).max(), np.abs(tp[:, 3]).max())
+    xf = final_state
+    final = (abs(xf[1] - math.pi / 2), abs(xf[2]), abs(xf[3]))
+    health = health_gate(codes, controls)
+    checks = dict(
+        no_failed_solve=health["no_failed_solve"],
+        terminal_upright_after_tick_20=bool(tp_err < 1e-4),
+        final_upright=bool(final[0] < 1e-4 and final[1] < 1e-4
+                           and final[2] < 1e-3),
+        violation_after_tick_20=bool(violations[21:].max() < 1e-4),
+        controls_within_limit=health["controls_within_limit"],
+    )
+    return dict(checks, ok=all(checks.values()),
+                terminal_error=float(tp_err),
+                final_error=[float(v) for v in final],
+                max_violation_after_tick_20=float(violations[21:].max()),
+                max_abs_u=health["max_abs_u"])
+
+
+def sweep_x0s(n, seed=0):
+    """cli.py's ``sweep`` states for the single model: hanging, b_x and
+    theta moved by uniform draws in [-0.3, 0.3]."""
+    rng = np.random.RandomState(seed)
+    x0s = np.tile(np.array(DOWN), (n, 1))
+    x0s[:, 0] += rng.uniform(-0.3, 0.3, n)
+    x0s[:, 1] += rng.uniform(-0.3, 0.3, n)
+    return x0s
+
+
+def vmap_agreement(mpc, x0s, dp):
+    """The first tick's solve of ``vmap(MPC.step)`` against path 2
+    (``step_lanes(..., fused=False)``, which launches kernel 2) on the same
+    cold states, by path (``_agreement``), and path 2 against itself with
+    its initial shooting states and controls moved up one ulp (its floor).
+    """
+    B = x0s.shape[0]
+    cold = pt.MPCState(
+        torch.zeros((B, mpc.spec.dim), dtype=x0s.dtype, device=x0s.device),
+        torch.zeros((B,), dtype=torch.bool, device=x0s.device))
+    out_pi, _ = torch.func.vmap(lambda st, x: mpc.step(st, x, dp))(cold, x0s)
+    out_l2, _ = pt.step_lanes(mpc, cold, x0s, dp, fused=False)
+
+    def path(out):
+        return dict(term=out.solver.termination_state,
+                    iters=out.solver.n_iterations,
+                    alpha=out.solver.iter_step_size.T, u=out.u.T)
+
+    r = _agreement(path(out_pi), path(out_l2))
+    problem, Z0 = lanes._prepare(mpc, cold, x0s, dp)
+
+    def up(t):
+        return torch.nextafter(t, torch.full_like(t, math.inf))
+
+    Za, oa = lanes._solve_lanes(problem, Z0, mpc.nls_config, fused=False)
+    Zb, ob = lanes._solve_lanes(problem, lanes._Z(up(Z0.xs), up(Z0.u)),
+                                mpc.nls_config, fused=False)
+    r["path2_vs_nudged_path2"] = _agreement(path_of_outputs(Zb, ob),
+                                            path_of_outputs(Za, oa))
+    return r
+
+
+def vmap_agreement_ok(r):
+    """The strict gate (>= 99.9 % on the same path, max |du| / mean |u| <=
+    1e-3) where path 2's own one-ulp floor meets it; else the floor gate
+    (``floor_ok``). Returns ``(ok, gate name)``."""
+    floor = r["path2_vs_nudged_path2"]
+    if floor["identical_fraction"] >= 0.999 and floor["rel_du"] <= 1e-3:
+        return (r["identical_fraction"] >= 0.999 and r["rel_du"] <= 1e-3,
+                "strict")
+    return floor_ok(r, floor), "floor"
+
+
+def tick_ms(fn, n):
+    """Wall ms of each of ``n`` synchronised calls of ``fn``."""
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def time_per_instance(mpc, dp, carry, n=10, eager=False):
+    """A warm tick of ``run_closed_loop`` from ``carry`` (x,
+    previous_solution, warm): the median ms of ``n`` replays of its CUDA
+    graph and one replay under ``torch.profiler`` (its device operations
+    are the kernels an eager tick launches one by one); with ``eager``,
+    also one eager tick (``closed_loop_step`` as the host launches it)
+    timed, and whether the replay gives the eager tick's bits. Runs under
+    ``vmap`` as well."""
+    tick = cl.tick_fn(mpc, dp, 0.0)
+    graph = cl.CUDAGraphTick(tick, carry)
+    out = dict(graph_ms=float(np.median(tick_ms(lambda: graph(*carry), n))),
+               graph_profile=profile_calls(lambda: graph(*carry)))
+    if eager:
+        out.update(eager_ms=tick_ms(lambda: tick(*carry), 1)[0],
+                   replay_bit_identical=all(
+                       torch.equal(a, b) for a, b in zip(graph(*carry),
+                                                         tick(*carry))))
+    return out
+
+
+def run_per_instance(dev, card):
+    """[per-instance]: [oracle], [swing-up], [schur], [vmap] and their
+    [timing]; each phase is fatal on failure. No kernel of the repo lies on
+    this path: the counts must stay 0 (the comparison with path 2 in
+    [vmap] launches kernel 2 outside the counted runs)."""
+    from cartpole_tpu_torch import native
+
+    t_group = time.perf_counter()
+
+    def phase_done(tag):
+        print(f"[per-instance] {time.perf_counter() - t_group:.1f} s after "
+              f"{tag}", flush=True)
+
+    f64 = torch.float64
+    x_down = torch.tensor(DOWN, dtype=f64, device=dev)
+    dp64 = pt.default_single_params(f64, dev)
+
+    def drive(tag, mpc, x, dp, ticks):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = pt.run_closed_loop(mpc, x, dp, ticks)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if any(counts().values()):
+            raise SystemExit(f"[{tag}] launched a kernel of the repo: "
+                             f"{counts()}")
+        return res, secs
+
+    # ------------------------------------------------------------- oracle
+    opt = pt.OptimizationParams(max_iterations=10, state_spacing=5,
+                                kkt_method="lu")
+    mpc_lu = pt.make_mpc(opt)
+    res, secs = drive("oracle", mpc_lu, x_down, dp64, TICKS_ORACLE)
+    u_ref, states_ref = native.oracle_closed_loop(
+        pt.SingleCartPoleParams(), opt, np.array(DOWN), TICKS_ORACLE)
+    g = oracle_gate(res.controls.cpu().numpy(), res.states.cpu().numpy(),
+                    u_ref, states_ref)
+    print(f"[oracle] lu, f64, KKT {mpc_lu.spec.dim + mpc_lu.spec.n_eq}x"
+          f"{mpc_lu.spec.dim + mpc_lu.spec.n_eq}, {TICKS_ORACLE} ticks of "
+          f"run_closed_loop from the hanging pole: {secs:.2f} s; against "
+          f"native/oracle.cc on the host: {json.dumps(g)}, gate max |du| <= "
+          f"{ORACLE_DU:g}, states atol {ORACLE_DX:g}  ({card})", flush=True)
+    if not g["ok"]:
+        raise SystemExit("[oracle] the lu closed loop departs from the "
+                         "C++ oracle")
+    phase_done("oracle")
+
+    # ----------------------------------------------- swing-up and schur
+    runs = {}
+    for tag, kkt, ticks in (("swing-up", "condensed", TICKS_SWINGUP),
+                            ("schur", "schur", TICKS_SCHUR)):
+        mpc = pt.make_mpc(pt.OptimizationParams(
+            max_iterations=10, state_spacing=5, kkt_method=kkt))
+        res, secs = drive(tag, mpc, x_down, dp64, ticks)
+        arrs = {k: getattr(res, k).cpu().numpy() for k in (
+            "termination_states", "terminal_predictions", "final_state",
+            "constraint_violations", "controls")}
+        if tag == "swing-up":
+            g, gates = swingup_gate(*arrs.values()), \
+                "tests/test_closed_loop.py"
+        else:
+            g, gates = health_gate(arrs["termination_states"],
+                                   arrs["controls"]), "codes and |u|"
+        codes = np.bincount(arrs["termination_states"], minlength=5)
+        print(f"[{tag}] {kkt}, f64, {ticks} ticks of run_closed_loop from "
+              f"the hanging pole: {secs:.2f} s, termination codes "
+              f"{codes.tolist()}; gates of {gates}: {json.dumps(g)}  "
+              f"({card})", flush=True)
+        if not g["ok"]:
+            raise SystemExit(f"[{tag}] its gates failed")
+        runs[tag] = (mpc, res)
+        phase_done(tag)
+
+    # --------------------------------------------------------------- vmap
+    mpc32 = pt.make_mpc(pt.OptimizationParams())
+    dp32 = pt.default_single_params(torch.float32, dev)
+    x0s = torch.as_tensor(sweep_x0s(VMAP_BATCH), dtype=torch.float32,
+                          device=dev)
+    r = vmap_agreement(mpc32, x0s, dp32)
+    ok, gate = vmap_agreement_ok(r)
+    print(f"[vmap] tick 1, vmap(MPC.step) against path 2 (step_lanes, "
+          f"fused=False) on the same {VMAP_BATCH} cold states, f32, gate "
+          f"{gate}: {json.dumps(r)}  ({card})", flush=True)
+    if not ok:
+        raise SystemExit("[vmap] the per-instance solve departs from path 2")
+    phase_done("vmap agreement")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = torch.func.vmap(
+        lambda x: pt.run_closed_loop(mpc32, x, dp32, TICKS_VMAP))(x0s)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if any(counts().values()):
+        raise SystemExit(f"[vmap] launched a kernel of the repo: {counts()}")
+    failed = n_failed([res])
+    finite = bool(torch.isfinite(res.states).all()
+                  and torch.isfinite(res.final_state).all())
+    up = upright_fraction(res.final_state.cpu().numpy())
+    print(f"[vmap] torch.func.vmap(run_closed_loop), batch {VMAP_BATCH}, "
+          f"{TICKS_VMAP} ticks, f32, default params: {secs:.2f} s, n_failed "
+          f"{failed}, finite {finite}, fraction_upright at tick "
+          f"{TICKS_VMAP} {up:.4f}  ({card})", flush=True)
+    if failed or not finite:
+        raise SystemExit("[vmap] failed solves or non-finite states")
+    phase_done("vmap")
+
+    # ------------------------------------------------------------- timing
+    mpc, res_s = runs["swing-up"]
+    carry64 = (res_s.final_state, res_s.final_mpc_state.previous_solution,
+               res_s.final_mpc_state.warm)
+    dp32_s = pt.default_single_params(torch.float32, dev)
+    timing = {
+        "single f64": time_per_instance(mpc, dp64, carry64, eager=True),
+        "single f32": time_per_instance(
+            mpc, dp32_s, tuple(c.float() if c.is_floating_point() else c
+                               for c in carry64)),
+    }
+    box = []
+    torch.func.vmap(lambda *c: box.append(time_per_instance(
+        mpc32, dp32, c)) or c[0])(
+        res.final_state, res.final_mpc_state.previous_solution,
+        res.final_mpc_state.warm)
+    timing[f"vmap B={VMAP_BATCH} f32 (default params)"] = box[0]
+    for name, t in timing.items():
+        eager = (f"; one eager tick {t['eager_ms']:.2f} ms; the replay "
+                 f"gives the eager tick's bits: {t['replay_bit_identical']}"
+                 if "eager_ms" in t else "")
+        print(f"[timing] per-instance, {name}, a warm tick of "
+              f"run_closed_loop: {t['graph_ms']:.2f} ms median of 10 "
+              f"replays of its CUDA graph, one under torch.profiler "
+              f"{json.dumps(t['graph_profile'])}{eager}  ({card})",
+              flush=True)
+    print(f"[per-instance] {time.perf_counter() - t_group:.1f} s for the "
+          f"group  ({card})", flush=True)
+    if not timing["single f64"]["replay_bit_identical"]:
+        raise SystemExit("[timing] the CUDA-graph replay of a tick departs "
+                         "from the eager tick")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -955,7 +1270,9 @@ def main() -> int:
 
 def run(dev) -> int:
     """Every phase on ``dev``; raises ``SystemExit`` on the first failed
-    gate."""
+    gate. A batching rule that ``torch.func.vmap`` lacks would run a batch
+    as a loop over its instances: its warning is an error here."""
+    warnings.filterwarnings("error", message="There is a performance drop")
     # ---------------------------------------------------------------- device
     card = _card()
     print(f"card: {card}", flush=True)
@@ -1144,6 +1461,8 @@ def run(dev) -> int:
     checks_t = check_multilink_kernels(pt.TRIPLE_CARTPOLE, dev, card)
     run_t = run_triple(dev, card)
     elapsed("the triple's phases")
+    run_per_instance(dev, card)
+    elapsed("the per-instance group")
     multilink = {pt.DOUBLE_CARTPOLE: (checks_d, run_d),
                  pt.TRIPLE_CARTPOLE: (checks_t, run_t)}
 

@@ -5,7 +5,7 @@ A schedule equals the same phases chained by hand through
 ``run_closed_loop_lanes``, bit for bit, with phases split into chunks; a
 phase may not change the decision-vector layout or the control tick, even
 where the decision vector keeps its size; ``layout="single"`` (the
-per-instance loop, not ported yet) raises ``NotImplementedError``.
+default) runs one instance through the per-instance loop.
 """
 
 import dataclasses
@@ -83,10 +83,22 @@ def test_layout_overrides_raise(overrides):
 
 
 def test_single_layout_raises_not_implemented():
+    """``layout="single"`` (the default) no longer raises: it runs one
+    instance through ``run_closed_loop``, phase after phase, and equals
+    the same phases chained by hand."""
     mpc, dp, x0 = _setup()
+    schedule = [(2, TRANSIENT), (1, None)]
     for kw in ({}, {"layout": "single"}):
-        with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-            pt.run_scheduled_closed_loop(mpc, x0[0], dp, [(1, None)], **kw)
+        got = pt.run_scheduled_closed_loop(mpc, x0[0], dp, schedule, **kw)
+        first = pt.run_closed_loop(
+            pt.make_mpc(dataclasses.replace(mpc.params, **TRANSIENT)), x0[0],
+            dp, 2)
+        second = pt.run_closed_loop(mpc, first.final_state, dp, 1,
+                                    mpc_state=first.final_mpc_state)
+        for name in FIELDS[:-1]:
+            want = torch.cat([getattr(first, name), getattr(second, name)])
+            assert torch.equal(getattr(got, name), want), name
+        assert torch.equal(got.final_state, second.final_state)
     with pytest.raises(ValueError, match="unknown layout"):
         pt.run_scheduled_closed_loop(mpc, x0, dp, [(1, None)], layout="rows")
     with pytest.raises(ValueError, match="at least one phase"):

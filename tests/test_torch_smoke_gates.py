@@ -77,3 +77,90 @@ def test_check_upright_curve(shift, ok):
     else:
         with pytest.raises(SystemExit):
             cs.check_upright_curve(res, pt.DOUBLE_CARTPOLE, "cpu")
+
+
+# ------------------------------------------------ the per-instance phases
+def _swingup(T=250):
+    """A made-up run that meets every swing-up gate."""
+    codes = np.full(T, 2)
+    tp = np.zeros((T, 4))
+    tp[:, 1] = math.pi / 2
+    tp[:21, 1] = 0.3  # warm-up ticks are not gated
+    xf = np.array([0.01, math.pi / 2 + 5e-5, -5e-5, 5e-4])
+    viol = np.full(T, 1e-7)
+    viol[:21] = 1.0
+    u = np.linspace(-280.0, 280.0, T)
+    return codes, tp, xf, viol, u
+
+
+def test_swingup_gate_accepts_a_good_run():
+    g = cs.swingup_gate(*_swingup())
+    assert g["ok"] and all(v for k, v in g.items() if isinstance(v, bool))
+
+
+@pytest.mark.parametrize("spoil,check", [
+    (lambda r: r[0].__setitem__(100, 3), "no_failed_solve"),
+    (lambda r: r[0].__setitem__(7, 4), "no_failed_solve"),
+    (lambda r: r[1].__setitem__((30, 1), math.pi / 2 + 2e-4),
+     "terminal_upright_after_tick_20"),
+    (lambda r: r[1].__setitem__((200, 3), -2e-4),
+     "terminal_upright_after_tick_20"),
+    (lambda r: r[2].__setitem__(1, math.pi / 2 - 2e-4), "final_upright"),
+    (lambda r: r[2].__setitem__(3, 2e-3), "final_upright"),
+    (lambda r: r[3].__setitem__(21, 2e-4), "violation_after_tick_20"),
+    (lambda r: r[4].__setitem__(5, 300.5), "controls_within_limit"),
+])
+def test_swingup_gate_refuses_each_fault(spoil, check):
+    run = list(_swingup())
+    spoil(run)
+    g = cs.swingup_gate(*run)
+    assert not g[check] and not g["ok"]
+
+
+def test_health_gate():
+    codes, _, _, _, u = _swingup(100)
+    assert cs.health_gate(codes, u)["ok"]
+    assert not cs.health_gate(np.r_[codes, 3], np.r_[u, 0.0])["ok"]
+    assert not cs.health_gate(codes, u * 1.1)["ok"]
+
+
+@pytest.mark.parametrize("du,dx,ok", [
+    (9e-5, 9e-6, True), (2e-4, 0.0, False), (0.0, 2e-5, False)])
+def test_oracle_gate(du, dx, ok):
+    rng = np.random.RandomState(0)
+    u_ref, x_ref = rng.normal(0, 30, 100), rng.normal(0, 1, (100, 4))
+    u, x = u_ref.copy(), x_ref.copy()
+    u[50] += du
+    x[60, 2] += dx
+    g = cs.oracle_gate(u, x, u_ref, x_ref)
+    assert g["ok"] is ok
+    assert g["max_abs_du"] == pytest.approx(du, abs=1e-12)
+
+
+@pytest.mark.parametrize("floor,r,ok,gate", [
+    # path 2 meets the strict gate against itself: the strict gate holds
+    (dict(identical_fraction=1.0, rel_du=1e-6),
+     dict(identical_fraction=0.9995, rel_du=5e-4), True, "strict"),
+    (dict(identical_fraction=1.0, rel_du=1e-6),
+     dict(identical_fraction=0.998, rel_du=5e-4), False, "strict"),
+    # path 2's own floor lies below it: the floor gate
+    (dict(identical_fraction=0.996, rel_du=8e-6),
+     dict(identical_fraction=0.985, rel_du=9e-4), True, "floor"),
+    (dict(identical_fraction=0.996, rel_du=8e-6),
+     dict(identical_fraction=0.97, rel_du=9e-4), False, "floor"),
+])
+def test_vmap_agreement_gate(floor, r, ok, gate):
+    assert cs.vmap_agreement_ok(dict(r, path2_vs_nudged_path2=floor)) == (
+        ok, gate)
+
+
+def test_sweep_states_follow_the_cli():
+    """cli.py's sweep: hanging poles, b_x and theta moved by up to 0.3,
+    seed 0, in that order of draws."""
+    x = cs.sweep_x0s(256)
+    rng = np.random.RandomState(0)
+    np.testing.assert_array_equal(x[:, 0], rng.uniform(-0.3, 0.3, 256))
+    np.testing.assert_array_equal(x[:, 1],
+                                  -math.pi / 2 + rng.uniform(-0.3, 0.3, 256))
+    assert not x[:, 2:].any()
+    assert cs.TICKS_SWINGUP == 250 and cs.TICKS_ORACLE == 100
