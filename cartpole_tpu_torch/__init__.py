@@ -6,10 +6,13 @@ with the fused Gauss-Newton kernel, and phase schedules of it through
 an NVIDIA H100, and the reference's per-instance path (``MPC.step``,
 ``solve_nls`` with its ``lu``, ``schur`` and ``condensed`` KKT paths,
 ``run_closed_loop``, the plant ``Simulator``), which batches with
-``torch.func.vmap``. It imports torch and numpy, never jax; the JAX package
-``cartpole_tpu`` is its reference.
+``torch.func.vmap``, and differentiable MPC (``make_differentiable_solve``:
+gradients through one solve, a ``torch.autograd.Function``). It imports
+torch and numpy, never jax; the JAX package ``cartpole_tpu`` is its
+reference.
 """
 
+from .diff import make_differentiable_solve
 from .models.base import (DOUBLE_CARTPOLE, SINGLE_CARTPOLE, TRIPLE_CARTPOLE,
                           get_model)
 from .models.params import (DoubleCartPoleParams, SingleCartPoleParams,
@@ -28,6 +31,7 @@ from .ops.solver import (NLSConfig, NLSOutputs, NLSProblem,
 __all__ = [
     "OptimizationParams",
     "make_mpc",
+    "make_differentiable_solve",
     "get_model",
     "SINGLE_CARTPOLE",
     "DOUBLE_CARTPOLE",

@@ -3,7 +3,10 @@
 
 Every field is a tensor: 0-d for one plant shared by the batch, or ``(B,)``
 for per-instance plants. Field order is the order the generated dynamics
-take them in (``models/_<version>_gen.py``).
+take them in (``models/_<version>_gen.py``). Each dataclass is a pytree node
+of ``torch.utils._pytree``, as a dataclass of arrays is in JAX, so
+``torch.func.grad`` takes one as an argument and returns its gradient as the
+same dataclass.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ import dataclasses
 from typing import Any
 
 import torch
+import torch.utils._pytree as pytree
 
 __all__ = [
     "SingleCartPoleParams",
@@ -81,6 +85,14 @@ class TripleCartPoleParams(_Params):
     l_2: Any = 0.25  #: Second link length (m).
     l_3: Any = 0.25  #: Third link length (m).
     g: Any = 9.81  #: Gravitational acceleration (m/s^2).
+
+
+for _cls in (SingleCartPoleParams, DoubleCartPoleParams,
+             TripleCartPoleParams):
+    pytree.register_pytree_node(
+        _cls, lambda p: (list(p.as_tuple()), None),
+        lambda fields, _ctx, cls=_cls: cls(*fields),
+        serialized_type_name=f"{__name__}.{_cls.__name__}")
 
 
 def default_single_params(dtype=torch.float32, device="cuda"

@@ -47,7 +47,16 @@ blocks and warps per SM). Then the per-instance group (``MPC.step``,
 (the reference's 250-tick test with its gates), schur, vmap (tick 1 of
 ``vmap(MPC.step)`` against path 2 by path, then ``vmap(run_closed_loop)`` at
 the CLI sweep's batch) and their timing (a CUDA-graph replay of a tick and
-an eager tick; a replay profiled once).
+an eager tick; a replay profiled once). Then the diff group
+(``make_differentiable_solve``, ``tools/sysid.py``; no kernel of the repo
+lies on it either): both backward methods' f32 gradients at the point of
+scripts/probe_diff_tpu.py against its f64 finite differences
+(``diff_tpu_f32.json``), the f64 ``ift`` gradient against the JAX
+package's (``diff_f64_jax_cpu.json``), the f32 ``ift`` under
+``torch.set_float32_matmul_precision("high")``, the saturated stall of
+tests/test_diff_saturation.py (``unrolled`` against central differences),
+``vmap(grad)`` over the sysid states, the first sysid steps, and their
+timing.
 Every kernel launch counter is set to 0 just before a path is driven and
 read just after. Prints the card's name and power limit beside every
 number, one JSON line describing the kernels, and as its last line
@@ -96,10 +105,11 @@ MULTILINK_KWARGS = dict(
     kkt_method="condensed")
 #: bench.py's double-pole outcome run (``_double_health``) is 250 ticks:
 #: an 8x u-rate weight for the first 50 cold-start ticks, then the base
-#: weights. Its eager glue takes ~2.3 s a tick on the card's host (~324k
-#: launches; PERF.md), so the smoke runs the schedule's first 100 ticks:
-#: the whole transient and 50 ticks of the base weights.
-DOUBLE_SCHEDULE = ((50, {"u_derivative_cost_weight": 0.8}), (50, None))
+#: weights. Its eager glue takes ~2.3-3.2 s a tick on the card's host
+#: (~324k launches; PERF.md), so the smoke runs the schedule's first 60
+#: ticks: the whole transient and 10 ticks of the base weights (100 until
+#: the [diff] group's eager gradients needed the time; PERF.md §4).
+DOUBLE_SCHEDULE = ((50, {"u_derivative_cost_weight": 0.8}), (10, None))
 #: The JAX bench's outcome of the 250-tick run (BENCH_r05.json, TPU v5e),
 #: printed beside this run's, and the gate on failed solves: the count of
 #: the JAX package's unscheduled 250-tick run (knockdowns.json
@@ -110,13 +120,15 @@ DOUBLE_MAX_FAILED = 4
 #: package's lanes loop on a CPU in f32 over the first states of
 #: make_x0s("double", 4096) (scripts/probe_double_upright_cpu.py): the
 #: port's share at each of UPRIGHT_CHECKPOINTS must lie within
-#: UPRIGHT_SIGMAS binomial standard deviations of it. After 100 ticks the
-#: recovery is half done (the share climbs towards ~0.99 by tick 250), so
+#: UPRIGHT_SIGMAS binomial standard deviations of it. After 60-100 ticks the
+#: recovery is under way (the share climbs towards ~0.99 by tick 250), so
 #: the curve, not one end value, is what the two runs share.
 UPRIGHT_WITNESS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                "double_upright_jax_cpu.json")
-UPRIGHT_CHECKPOINTS, UPRIGHT_SIGMAS = (25, 50, 75, 100), 4.0
-TICKS_DOUBLE_PATH2, TICKS_TRIPLE, TICKS_TRIPLE_PATH2 = 5, 30, 10
+UPRIGHT_CHECKPOINTS, UPRIGHT_SIGMAS = (25, 50, 60), 4.0
+#: The double's path 2 and the triple's paths run 3, 10 and 5 ticks (5, 30
+#: and 10 before the [diff] group; PERF.md §4).
+TICKS_DOUBLE_PATH2, TICKS_TRIPLE, TICKS_TRIPLE_PATH2 = 3, 10, 5
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s off the
 #: tensor cores.
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
@@ -812,7 +824,7 @@ def check_upright_curve(res, model, card):
 
 def run_double(dev, card, floor):
     """[double]: bench.py's double-pole outcome run on path 1 through
-    ``run_scheduled_closed_loop`` (its first 100 ticks), with its upright
+    ``run_scheduled_closed_loop`` (its first 60 ticks), with its upright
     share tick by tick against the JAX package's; then the first ticks of
     the same schedule on path 2, and [cross] path 2 against path 1 on the
     cold problem, against ``floor``: the plain version's agreement with
@@ -976,10 +988,11 @@ def time_multilink(model, run, checks, card, median_ticks=3):
 #: GN iterations, f64, from the hanging pole), and the CLI sweep's (cli.py
 #: ``sweep --layout vmap``: the default params, batch 256, hanging poles
 #: moved by up to 0.3 in b_x and theta from seed 0, f32).
-#: The schur path runs 100 ticks gated on its codes and controls, and the
-#: vmap run 50 ticks, not 250 and 100, to hold the group's time (PERF.md).
+#: The schur path runs 50 ticks gated on its codes and controls, and the
+#: vmap run 25 ticks, not 250 and 100, to hold the smoke's time (PERF.md
+#: §4; 100 and 50 before the [diff] group).
 DOWN = (0.0, -math.pi / 2, 0.0, 0.0)
-TICKS_ORACLE, TICKS_SWINGUP, TICKS_SCHUR, TICKS_VMAP = 100, 250, 100, 50
+TICKS_ORACLE, TICKS_SWINGUP, TICKS_SCHUR, TICKS_VMAP = 100, 250, 50, 25
 VMAP_BATCH = 256
 #: tests/test_native.py:145-153: |u - u_oracle| and the states' atol.
 ORACLE_DU, ORACLE_DX = 1e-4, 1e-5
@@ -1261,6 +1274,327 @@ def run_per_instance(dev, card):
                          "from the eager tick")
 
 
+# --------------------------------------------------- the differentiable solve
+#: The point of scripts/probe_diff_tpu.py, the reference's on-chip gate of
+#: make_differentiable_solve: the default window 40, spacing 5, condensed,
+#: 12 GN iterations, f32, L = sum(u*^2) from DIFF_X0. Its f64 central
+#: differences on a CPU (diff_tpu_f32.json's fd_f64_cpu) are the witness;
+#: the TPU v5e's own gradients in that file are printed beside the card's.
+DIFF_WITNESS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "diff_tpu_f32.json")
+#: The JAX package's f64 gradients at the same point, on a CPU
+#: (scripts/probe_diff_f64_cpu.py): the solve stops on its relative
+#: tolerance short of stationarity, so the f64 "ift" gradient (exact at a
+#: stationary point) lies ~5e-4 from the finite differences in either
+#: package; the port's f64 "ift" is held to the JAX package's, its f64
+#: "unrolled" to the finite differences.
+DIFF_F64_WITNESS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "diff_f64_jax_cpu.json")
+DIFF_X0 = (0.15, math.pi / 2 - 0.15, 0.1, -0.2)
+#: probe_diff_tpu.py's gates: cosine with the witness, max relative error
+#: in x (denominator max(|g_fd|, 1e-3)), relative error in m_1.
+DIFF_COS, DIFF_REL = 0.999, 0.05
+#: The f64 gates (tests/test_diff.py's) and the saturated stall's.
+DIFF_F64_RTOL, DIFF_F64_ATOL, STALL_RTOL = 2e-4, 1e-7, 1e-3
+#: tests/test_diff_saturation.py's stall: window 20, u_limit 31, 60
+#: iterations, f64, from STALL_X0.
+STALL_KWARGS = dict(max_iterations=60, window_length=20, state_spacing=5,
+                    u_guess_sinusoid_amplitude=0.0, u_limit=31.0)
+STALL_X0 = (0.1, math.pi / 2 + 0.15, -0.05, 0.1)
+#: Adam steps of tools/sysid.py run by the smoke (the tool runs 120).
+SYSID_SMOKE_STEPS = 2
+#: Samples of each timed call (the median is printed; the unrolled
+#: gradient, 8-15 s, has only the gate's); the gates' own gradients at the
+#: probe point count among them.
+DIFF_TIMING_REPS = 3
+
+
+def diff_witness():
+    with open(DIFF_WITNESS) as f:
+        return json.load(f)
+
+
+def diff_f64_witness():
+    with open(DIFF_F64_WITNESS) as f:
+        return json.load(f)
+
+
+def diff_gate(g_x, g_m1, fd):
+    """probe_diff_tpu.py's gates of a gradient ``(g_x (4,), g_m1)`` against
+    the witness ``fd`` (``{"g_x", "g_m1"}``)."""
+    g_x, g_fd = np.asarray(g_x, np.float64), np.asarray(fd["g_x"])
+    cos = float(g_x @ g_fd / (np.linalg.norm(g_x) * np.linalg.norm(g_fd)))
+    rel_x = float(np.max(np.abs(g_x - g_fd) / np.maximum(np.abs(g_fd), 1e-3)))
+    rel_m = float(abs(g_m1 - fd["g_m1"]) / max(abs(fd["g_m1"]), 1e-3))
+    ok = cos >= DIFF_COS and rel_x <= DIFF_REL and rel_m <= DIFF_REL
+    return dict(cos=cos, max_rel_err_x=rel_x, rel_err_m1=rel_m, ok=bool(ok))
+
+
+def close_gate(g, g_ref, rtol, atol=0.0):
+    """``np.allclose(g, g_ref, rtol, atol)`` with the largest relative
+    error (numpy arrays)."""
+    g, g_ref = np.asarray(g, np.float64), np.asarray(g_ref, np.float64)
+    rel = float(np.max(np.abs(g - g_ref) / np.abs(g_ref)))
+    return dict(max_rel_err=rel, ok=bool(np.allclose(g, g_ref, rtol=rtol,
+                                                     atol=atol)))
+
+
+def run_diff(dev, card):
+    """[diff]: the differentiable solve (``make_differentiable_solve``,
+    both backward methods) and ``tools/sysid.py`` on the card; each phase
+    is fatal on failure. No kernel of the repo lies on this path: the
+    counts must stay 0. Every solve here is eager (~16-20 us of host time
+    a launch, PERF.md), so each phase takes its numbers from as few solves
+    as it can: the diagnostics ride on the gradient's solve, the saturated
+    stall's central differences are one vmapped forward, and the timing
+    reuses the gates' gradients as samples."""
+    from cartpole_tpu_torch.tools import sysid
+
+    t_group = time.perf_counter()
+    f32, f64 = torch.float32, torch.float64
+
+    def phase_done(tag):
+        print(f"[diff] {time.perf_counter() - t_group:.1f} s after {tag}",
+              flush=True)
+
+    def counted(tag, fn):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if any(counts().values()):
+            raise SystemExit(f"[{tag}] launched a kernel of the repo: "
+                             f"{counts()}")
+        return out, secs
+
+    witness, w64 = diff_witness(), diff_f64_witness()
+    fd = witness["fd_f64_cpu"]
+    mpc = pt.make_mpc(pt.OptimizationParams(
+        max_iterations=12, state_spacing=5, kkt_method="condensed"))
+    u0 = mpc.spec.u_start
+
+    def probe_args(dtype):
+        return (torch.tensor(DIFF_X0, dtype=dtype, device=dev),
+                pt.default_single_params(dtype, dev),
+                mpc.init_state(dtype, dev))
+
+    def probe_grad(dtype, method):
+        """(dL/dx, dL/dm_1, the diagnostics) at the probe point: "ift"
+        through ``torch.func.grad``, "unrolled" through ``.backward()``
+        (its recomputed solve's graph is recorded once there, twice under
+        an outer ``torch.func.grad``: half the host memory)."""
+        x0, dp, st = probe_args(dtype)
+        solve = pt.make_differentiable_solve(mpc, with_diagnostics=True,
+                                             method=method)
+
+        def loss(x, d):
+            z, diag = solve(x, d, 0.0, st)
+            return torch.sum(z[u0:] ** 2), diag
+
+        if method == "ift":
+            (gx, gd), diag = torch.func.grad(loss, argnums=(0, 1),
+                                             has_aux=True)(x0, dp)
+            return gx.double().cpu().numpy(), float(gd.m_1), diag
+        x0.requires_grad_()
+        m1 = dp.m_1.clone().requires_grad_()
+        value, diag = loss(x0, dataclasses.replace(dp, m_1=m1))
+        value.backward()
+        return x0.grad.double().cpu().numpy(), float(m1.grad), diag
+
+    samples = {"gradient ift": [], "gradient unrolled": []}
+
+    # ----------------------------------------------------- on-chip gradient
+    f32_grads = {}
+    for method in ("ift", "unrolled"):
+        (gx, gm, diag), secs = counted("diff", lambda: probe_grad(f32,
+                                                                 method))
+        samples[f"gradient {method}"].append(secs * 1e3)
+        f32_grads[method] = (gx, gm)
+        g = diff_gate(gx, gm, fd)
+        tpu = witness[method]
+        print(f"[diff] {method}, f32, at the point of scripts/"
+              f"probe_diff_tpu.py (window 40, spacing 5, condensed, 12 "
+              f"iterations, x0 {list(DIFF_X0)}, L = sum(u*^2)): n_active "
+              f"{int(diag['n_active'])}, termination_state "
+              f"{int(diag['termination_state'])}; dL/dx {gx.tolist()}, "
+              f"dL/dm_1 {gm!r}; against diff_tpu_f32.json's fd_f64_cpu: "
+              f"{json.dumps(g)} (gates cos >= {DIFF_COS}, relative errors "
+              f"<= {DIFF_REL}); {secs:.2f} s  ({card}). The TPU v5 lite's, "
+              f"from that file: diagnostics "
+              f"{json.dumps(witness['diagnostics'])}, dL/dx {tpu['g_x']}, "
+              f"dL/dm_1 {tpu['g_m1']}, cos {tpu['cos_vs_fd']}, "
+              f"max_rel_err_x {tpu['max_rel_err_x']}, rel_err_m1 "
+              f"{tpu['rel_err_m1']}", flush=True)
+        if not g["ok"]:
+            raise SystemExit(f"[diff] the f32 {method} gradient departs "
+                             f"from the finite differences")
+    phase_done("the f32 gradients")
+
+    # ------------------------------------------------------------------ f64
+    (gx, gm, _), secs = counted("diff", lambda: probe_grad(f64, "ift"))
+    ref = w64["ift"]
+    g = close_gate(np.r_[gx, gm], np.r_[ref["g_x"], ref["g_m1"]],
+                   DIFF_F64_RTOL, DIFF_F64_ATOL)
+    to_fd = close_gate(np.r_[gx, gm], np.r_[fd["g_x"], fd["g_m1"]],
+                       DIFF_F64_RTOL, DIFF_F64_ATOL)["max_rel_err"]
+    print(f"[diff] ift, f64: dL/dx {gx.tolist()}, dL/dm_1 {gm!r}; against "
+          f"the JAX package's f64 ift (diff_f64_jax_cpu.json): "
+          f"{json.dumps(g)} (gate rtol {DIFF_F64_RTOL:g}, atol "
+          f"{DIFF_F64_ATOL:g}); max relative error against the finite "
+          f"differences {to_fd:.3e} (the JAX package's "
+          f"{ref['max_rel_err_x_vs_fd']:.3e} in x, "
+          f"{ref['rel_err_m1_vs_fd']:.3e} in m_1: the solve stops short of "
+          f"stationarity); {secs:.2f} s  ({card})", flush=True)
+    if not g["ok"]:
+        raise SystemExit("[diff] the f64 ift gradient departs from the JAX "
+                         "package's")
+    phase_done("f64")
+
+    # ------------------------------------------------------------ precision
+    torch.set_float32_matmul_precision("high")
+    try:
+        (gx, gm, _), secs = counted("diff", lambda: probe_grad(f32, "ift"))
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    samples["gradient ift"].append(secs * 1e3)
+    g = diff_gate(gx, gm, fd)
+    same = bool(np.array_equal(gx, f32_grads["ift"][0])
+                and gm == f32_grads["ift"][1])
+    print(f"[diff] ift, f32, under torch.set_float32_matmul_precision("
+          f"\"high\"): {json.dumps(g)}; the bits of the default setting's "
+          f"gradient: {same}; {secs:.2f} s  ({card})", flush=True)
+    if not g["ok"]:
+        raise SystemExit("[diff] the ift gradient departs from the finite "
+                         "differences under the \"high\" matmul precision")
+    phase_done("precision")
+
+    # ----------------------------------------------------------- saturation
+    mpc_s = pt.make_mpc(pt.OptimizationParams(**STALL_KWARGS))
+    us = mpc_s.spec.u_start
+    xs0 = torch.tensor(STALL_X0, dtype=f64, device=dev)
+    dp64 = pt.default_single_params(f64, dev)
+    st_s = mpc_s.init_state(f64, dev)
+    unrolled = pt.make_differentiable_solve(mpc_s, with_diagnostics=True,
+                                            method="unrolled")
+    ift = pt.make_differentiable_solve(mpc_s)
+    eps = 1e-6
+    steps = eps * torch.eye(4, dtype=f64, device=dev)
+
+    def stall_loss(x):
+        z, diag = unrolled(x, dp64, 0.0, st_s)
+        return torch.sum(z[us:] ** 2), diag
+
+    def stall_grad():
+        x = xs0.clone().requires_grad_()
+        value, diag = stall_loss(x)
+        value.backward()
+        return x.grad, diag
+
+    (g_un, diag), secs_un = counted("diff", stall_grad)
+    # The central differences' 8 solves in one vmap of the forward.
+    vals, secs_fd = counted("diff", lambda: torch.func.vmap(
+        lambda x: stall_loss(x)[0])(torch.cat([xs0 + steps, xs0 - steps])))
+    g_ift, secs_ift = counted("diff", lambda: torch.func.grad(
+        lambda x: torch.sum(ift(x, dp64, 0.0, st_s)[us:] ** 2))(xs0))
+    g_un, g_ift = g_un.cpu().numpy(), g_ift.cpu().numpy()
+    n_act, term = diag["n_active"], diag["termination_state"]
+    fd_s = ((vals[:4] - vals[4:]) / (2 * eps)).cpu().numpy()
+    g = close_gate(g_un, fd_s, STALL_RTOL)
+    finite = bool(np.isfinite(g_ift).all() and np.isfinite(g_un).all())
+    n_act = int(n_act)
+    print(f"[diff] saturated stall (tests/test_diff_saturation.py: window "
+          f"20, u_limit 31, 60 iterations, f64): n_active {n_act}, "
+          f"termination_state {int(term)}; unrolled dL/dx {g_un.tolist()} "
+          f"against central differences on the card {fd_s.tolist()}: "
+          f"{json.dumps(g)} (gate rtol {STALL_RTOL:g}); {secs_un:.2f} s for "
+          f"the gradient (.backward()), {secs_fd:.2f} s for the 8 "
+          f"neighbours' solves in one vmap; ift dL/dx {g_ift.tolist()}, "
+          f"finite {finite}, {secs_ift:.2f} s  ({card})", flush=True)
+    if n_act < 2 or not g["ok"] or not finite:
+        raise SystemExit("[diff] the saturated stall's gates failed")
+    phase_done("saturation")
+
+    # ----------------------------------------------------------------- vmap
+    mpc_id = sysid.make_mpc_for()
+    xs = torch.as_tensor(sysid.excitation_states(), dtype=f64, device=dev)
+    solve_id = pt.make_differentiable_solve(mpc_id)
+    st_id = mpc_id.init_state(f64, dev)
+    ui = mpc_id.spec.u_start
+
+    def plan_loss(x):
+        return torch.sum(solve_id(x, dp64, 0.0, st_id)[ui:] ** 2)
+
+    gs, vmap_s = counted("diff", lambda: torch.func.vmap(
+        torch.func.grad(plan_loss))(xs))
+    rows = [torch.func.grad(plan_loss)(xs[i]) for i in range(len(xs))]
+    rel = float(max((torch.abs(gs[i] - r) / torch.abs(r)).max()
+                    for i, r in enumerate(rows)))
+    finite = bool(torch.isfinite(gs).all())
+    ok = finite and all(torch.allclose(gs[i], r, rtol=1e-9, atol=0)
+                        for i, r in enumerate(rows))
+    print(f"[diff] torch.func.vmap(torch.func.grad(loss)) over the "
+          f"{len(xs)} states of tools/sysid.py (window 20, 20 iterations, "
+          f"f64, L = sum(u*^2)): {vmap_s:.2f} s; each row against the "
+          f"unbatched gradient: max relative error {rel:.3e} (gate 1e-9), "
+          f"finite {finite}  ({card})", flush=True)
+    if not ok:
+        raise SystemExit("[diff] the vmapped gradients depart from the "
+                         "unbatched ones")
+    phase_done("vmap")
+
+    # ---------------------------------------------------------------- sysid
+    base = pt.default_single_params(f64, dev)
+    plans = sysid.make_plans(mpc_id, xs)
+
+    def sysid_run():
+        with torch.no_grad():
+            u_data = plans(sysid.with_fit(base, torch.tensor(
+                sysid.TRUE_VALUES, dtype=f64, device=dev)))
+        loss = sysid.make_loss(plans, base, u_data)
+        return sysid.fit(loss, torch.tensor(sysid.INITIAL_VALUES, dtype=f64,
+                                            device=dev), SYSID_SMOKE_STEPS)
+
+    (v, losses), secs = counted("sysid", sysid_run)
+    ok = bool(np.isfinite(losses).all() and losses[-1] < losses[0]
+              and torch.isfinite(v).all())
+    print(f"[sysid] tools/sysid.py, its first {SYSID_SMOKE_STEPS} Adam "
+          f"steps (8 states, window 20, f64): losses {losses}, m_1, l_1 "
+          f"{v.cpu().tolist()} (true {list(sysid.TRUE_VALUES)}); {secs:.2f} "
+          f"s with the data's solve  ({card})", flush=True)
+    if not ok:
+        raise SystemExit("[sysid] the loss is not finite or did not fall")
+    phase_done("sysid")
+
+    # --------------------------------------------------------------- timing
+    x0, dp32, st32 = probe_args(f32)
+    forward = pt.make_differentiable_solve(mpc)
+
+    def fwd():
+        with torch.no_grad():
+            forward(x0, dp32, 0.0, st32)
+
+    samples["forward"] = tick_ms(fwd, DIFF_TIMING_REPS)
+    for method, n in (("ift", DIFF_TIMING_REPS), ("unrolled", 1)):
+        key = f"gradient {method}"
+        samples[key] += tick_ms(lambda: probe_grad(f32, method),
+                                n - len(samples[key]))
+    prof = profile_calls(lambda: probe_grad(f32, "ift"))
+    med = {k: float(np.median(v)) for k, v in samples.items()}
+    for k in ("forward", "gradient ift", "gradient unrolled"):
+        back = (f"; backward {med[k] - med['forward']:.1f} ms (the gradient "
+                f"less the forward's median)" if k != "forward" else "")
+        print(f"[timing] diff, {k}, single f32 at the probe point: median "
+              f"{med[k]:.1f} ms of {[round(t, 1) for t in samples[k]]}"
+              f"{back}  ({card})", flush=True)
+    print(f"[timing] diff, one ift gradient under torch.profiler: "
+          f"{json.dumps(prof)}; the vmap gradient over {len(xs)} states, "
+          f"f64: {vmap_s * 1e3:.1f} ms  ({card})", flush=True)
+    print(f"[diff] {time.perf_counter() - t_group:.1f} s for the group  "
+          f"({card})", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1463,6 +1797,8 @@ def run(dev) -> int:
     elapsed("the triple's phases")
     run_per_instance(dev, card)
     elapsed("the per-instance group")
+    run_diff(dev, card)
+    elapsed("the diff group")
     multilink = {pt.DOUBLE_CARTPOLE: (checks_d, run_d),
                  pt.TRIPLE_CARTPOLE: (checks_t, run_t)}
 

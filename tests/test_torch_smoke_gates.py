@@ -164,3 +164,41 @@ def test_sweep_states_follow_the_cli():
                                   -math.pi / 2 + rng.uniform(-0.3, 0.3, 256))
     assert not x[:, 2:].any()
     assert cs.TICKS_SWINGUP == 250 and cs.TICKS_ORACLE == 100
+
+
+# ------------------------------------------------------ the [diff] phases
+def test_diff_witnesses_describe_the_probe_point():
+    """The TPU run's finite differences and the JAX package's f64
+    gradients are of the same point; the f32 gate passes the TPU's own
+    gradients and the JAX package's f64 unrolled one."""
+    w, w64 = cs.diff_witness(), cs.diff_f64_witness()
+    fd = w["fd_f64_cpu"]
+    assert w["pass"] and w["diagnostics"] == w64["diagnostics"]
+    for method in ("ift", "unrolled"):
+        assert cs.diff_gate(w[method]["g_x"], w[method]["g_m1"], fd)["ok"]
+    g = cs.close_gate(w64["unrolled"]["g_x"] + [w64["unrolled"]["g_m1"]],
+                      fd["g_x"] + [fd["g_m1"]], cs.DIFF_F64_RTOL,
+                      cs.DIFF_F64_ATOL)
+    assert g["ok"]
+
+
+@pytest.mark.parametrize("scale,shift,ok", [
+    (1.0, 0.0, True),          # the witness itself
+    (1.04, 0.0, True),         # 4 % off everywhere: cos 1, rel 0.04
+    (1.06, 0.0, False),        # 6 % off
+    (1.0, 2e4, False),         # a shifted x component: rel 0.79 there
+    (-1.0, 0.0, False),        # the sign flipped (cos -1)
+])
+def test_diff_gate(scale, shift, ok):
+    fd = cs.diff_witness()["fd_f64_cpu"]
+    g_x = np.asarray(fd["g_x"]) * scale
+    g_x[3] += shift
+    assert cs.diff_gate(g_x, fd["g_m1"] * scale, fd)["ok"] is ok
+
+
+def test_close_gate():
+    g = cs.close_gate([1.0, -2.0 * (1 + 1.5e-4)], [1.0, -2.0], 2e-4)
+    assert g["ok"] and g["max_rel_err"] == pytest.approx(1.5e-4)
+    assert not cs.close_gate([1.0, -2.0 * (1 + 3e-4)], [1.0, -2.0],
+                             2e-4)["ok"]
+    assert not cs.close_gate([1.0, float("nan")], [1.0, -2.0], 2e-4)["ok"]

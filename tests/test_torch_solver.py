@@ -136,11 +136,34 @@ def test_solve_matches_reference(solves, name, method):
     assert int(outp.n_iterations) == int(outr.n_iterations)
     np.testing.assert_allclose(zp.numpy(), np.asarray(zr), atol=1e-10,
                                rtol=0)
-    for field in ("cost", "constraint_violation", "lambda_final",
-                  "iter_step_size"):
+    for field in ("cost", "constraint_violation", "lambda_final"):
         np.testing.assert_allclose(getattr(outp, field).numpy(),
                                    np.asarray(getattr(outr, field)),
                                    atol=1e-10, rtol=1e-10)
+    _assert_step_sizes_match(outp, outr)
+
+
+def _assert_step_sizes_match(outp, outr):
+    """The accepted step sizes agree within 1e-10, except on an iteration
+    that starts at the solve's final cost to rounding (its ``iter_cost``
+    within ``8 eps |cost|`` of it): there both sides of the Armijo test are
+    the optimum's merit to a few ulps, and which side wins follows the BLAS
+    reduction order, so both packages need only agree on whether a step was
+    taken. ``scripts/probe_awkward_dim_83.py`` measured it on the 83-unknown
+    problem's second iteration: the full step's merit lies 12.1 (JAX) and
+    8.1 (the port, 1 and 6 threads) ulps of ``phi0`` below the Armijo bound
+    (``phi0 + c1 dphi + slack``, ``c1 dphi`` ~1e-31) and, with 8 threads,
+    4.8 ulps above it, so there the port takes the half step where the
+    reference takes the whole one."""
+    alpha_p = outp.iter_step_size.numpy()
+    alpha_r = np.asarray(outr.iter_step_size)
+    cost = float(outr.cost)
+    with np.errstate(invalid="ignore"):  # a failed solve's costs are NaN
+        noise = np.abs(np.asarray(outr.iter_cost) - cost) <= (
+            8 * np.finfo(np.float64).eps * abs(cost))
+    np.testing.assert_array_equal(alpha_p[noise] > 0, alpha_r[noise] > 0)
+    np.testing.assert_allclose(alpha_p[~noise], alpha_r[~noise], atol=1e-10,
+                               rtol=1e-10)
 
 
 @pytest.mark.parametrize("name,method,code", [
