@@ -7,9 +7,11 @@ an NVIDIA H100, and the reference's per-instance path (``MPC.step``,
 ``solve_nls`` with its ``lu``, ``schur`` and ``condensed`` KKT paths,
 ``run_closed_loop``, the plant ``Simulator``), which batches with
 ``torch.func.vmap``, and differentiable MPC (``make_differentiable_solve``:
-gradients through one solve, a ``torch.autograd.Function``). It imports
-torch and numpy, never jax; the JAX package ``cartpole_tpu`` is its
-reference.
+gradients through one solve, a ``torch.autograd.Function``). Users start
+it as ``python -m cartpole_tpu_torch`` (``cli.py``: ``solve``,
+``closed-loop``, ``sweep`` over the scenario-parallel layer ``parallel/``,
+``replay``), or through the ``pypendulum`` shim. It imports torch and
+numpy, never jax; the JAX package ``cartpole_tpu`` is its reference.
 """
 
 from .diff import make_differentiable_solve

@@ -12,6 +12,7 @@ same dataclass.
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Any
 
 import torch
@@ -42,6 +43,25 @@ class _Params:
             k: torch.as_tensor(v, dtype=dtype, device=device)
             for k, v in self.as_dict().items()
         })
+
+    # -- JSON round trip over the reference's field names (wasm.cc:19-28)
+    def to_json(self) -> str:
+        """The fields as a JSON object of floats; scalar fields only."""
+        return json.dumps({k: float(v) for k, v in self.as_dict().items()},
+                          sort_keys=True)
+
+    @classmethod
+    def from_json(cls, payload: str):
+        """The dataclass of python floats in ``payload``; an unknown field
+        name raises ``ValueError`` listing the known ones."""
+        data = json.loads(payload)
+        known = {f.name for f in dataclasses.fields(cls)}
+        unknown = sorted(set(data) - known)
+        if unknown:
+            raise ValueError(
+                f"unknown {cls.__name__} field(s) {unknown}; "
+                f"known fields: {sorted(known)}")
+        return cls(**data)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,7 +112,10 @@ for _cls in (SingleCartPoleParams, DoubleCartPoleParams,
     pytree.register_pytree_node(
         _cls, lambda p: (list(p.as_tuple()), None),
         lambda fields, _ctx, cls=_cls: cls(*fields),
-        serialized_type_name=f"{__name__}.{_cls.__name__}")
+        serialized_type_name=f"{__name__}.{_cls.__name__}",
+        flatten_with_keys_fn=lambda p: (
+            [(pytree.GetAttrKey(k), v) for k, v in p.as_dict().items()],
+            None))
 
 
 def default_single_params(dtype=torch.float32, device="cuda"

@@ -56,38 +56,53 @@ package's (``diff_f64_jax_cpu.json``), the f32 ``ift`` under
 ``torch.set_float32_matmul_precision("high")``, the saturated stall of
 tests/test_diff_saturation.py (``unrolled`` against central differences),
 ``vmap(grad)`` over the sysid states, the first sysid steps, and their
-timing.
+timing; it runs as a process of its own (``--group diff``) beside the
+double's and triple's phases, and its output is printed after them. Then
+the cli group, the entry points as a user starts them
+(``python -m cartpole_tpu_torch``): ``sweep`` at batch 4096 in f32 with
+``--layout lanes-fused`` (kernel 1) and ``lanes`` (kernel 2), the same
+lanes-fused sweep on two ranks of the one card under ``torchrun`` (gloo)
+against one rank, ``closed-loop`` in f64 with ``--log-json`` and its
+``replay``, ``solve`` as a process of its own, and the sweep's
+``trace_scope`` span. The kernels line counts the launches of path 1 and
+path 2 and of the group's sweeps.
 Every kernel launch counter is set to 0 just before a path is driven and
 read just after. Prints the card's name and power limit beside every
 number, one JSON line describing the kernels, and as its last line
 ``{"ok": true, "device": {...}}``.
 
-Usage: python3 chip_smoke.py
+Usage: python3 chip_smoke.py   (``--group diff``: only the diff group)
 Needs one CUDA device, nvcc (CUDA toolkit) and the repository beside it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
 import re
+import socket
 import subprocess
 import sys
+import threading
 import time
 import warnings
 
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
-from torch.utils._python_dispatch import TorchDispatchMode
 
 import cartpole_tpu_torch as pt
 from cartpole_tpu_torch.mpc import closed_loop as cl
 from cartpole_tpu_torch.mpc import lanes
 from cartpole_tpu_torch.ops import _build, fused
 from cartpole_tpu_torch.ops import pallas_kernels as pk
+from cartpole_tpu_torch import cli
+from cartpole_tpu_torch import utils as ptu
+from cartpole_tpu_torch.utils.roofline import bound, count_ops
 
 BATCH, TICKS, TICKS_PATH2, TICKS_DISTURBED = 4096, 250, 150, 100
 #: Single-tick calls whose median is the single's ms/tick.
@@ -106,32 +121,32 @@ MULTILINK_KWARGS = dict(
 #: bench.py's double-pole outcome run (``_double_health``) is 250 ticks:
 #: an 8x u-rate weight for the first 50 cold-start ticks, then the base
 #: weights. Its eager glue takes ~2.3-3.2 s a tick on the card's host
-#: (~324k launches; PERF.md), so the smoke runs the schedule's first 60
-#: ticks: the whole transient and 10 ticks of the base weights (100 until
-#: the [diff] group's eager gradients needed the time; PERF.md §4).
-DOUBLE_SCHEDULE = ((50, {"u_derivative_cost_weight": 0.8}), (10, None))
+#: (~324k launches; PERF.md), so the smoke shortens the schedule to 15
+#: ticks: 10 of the transient, then 5 of the base weights (50 + 50 before
+#: the [diff] group, 50 + 10 before the [cli] group; PERF.md §4). It runs
+#: in chunks of DOUBLE_CHUNK ticks, so each phase crosses a chunk boundary
+#: and the warm start is carried across chunks and across the switch.
+DOUBLE_SCHEDULE = ((10, {"u_derivative_cost_weight": 0.8}), (5, None))
+DOUBLE_CHUNK = 4
 #: The JAX bench's outcome of the 250-tick run (BENCH_r05.json, TPU v5e),
 #: printed beside this run's, and the gate on failed solves: the count of
 #: the JAX package's unscheduled 250-tick run (knockdowns.json
 #: ``n_failed_base``).
 DOUBLE_REFERENCE = dict(fraction_upright=0.9956, n_failed=0)
 DOUBLE_MAX_FAILED = 4
-#: The upright share of the same regime tick by tick, from the JAX
+#: The upright share of the same schedule tick by tick, from the JAX
 #: package's lanes loop on a CPU in f32 over the first states of
-#: make_x0s("double", 4096) (scripts/probe_double_upright_cpu.py): the
-#: port's share at each of UPRIGHT_CHECKPOINTS must lie within
-#: UPRIGHT_SIGMAS binomial standard deviations of it. After 60-100 ticks the
-#: recovery is under way (the share climbs towards ~0.99 by tick 250), so
-#: the curve, not one end value, is what the two runs share.
+#: make_x0s("double", 4096) (scripts/probe_double_upright_cpu.py
+#: ``--ticks 15 --transient 10``): the port's share at each of
+#: UPRIGHT_CHECKPOINTS (within the transient, at the switch to the base
+#: weights, and at the end) must lie within UPRIGHT_SIGMAS binomial
+#: standard deviations of it.
 UPRIGHT_WITNESS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                               "double_upright_jax_cpu.json")
-UPRIGHT_CHECKPOINTS, UPRIGHT_SIGMAS = (25, 50, 60), 4.0
+                               "double_upright_switch_jax_cpu.json")
+UPRIGHT_CHECKPOINTS, UPRIGHT_SIGMAS = (5, 10, 15), 4.0
 #: The double's path 2 and the triple's paths run 3, 10 and 5 ticks (5, 30
 #: and 10 before the [diff] group; PERF.md §4).
 TICKS_DOUBLE_PATH2, TICKS_TRIPLE, TICKS_TRIPLE_PATH2 = 3, 10, 5
-#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s off the
-#: tensor cores.
-PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 
 
 def _card() -> str:
@@ -186,55 +201,6 @@ def reset_counts():
 def counts():
     return dict(fused_iteration=fused.fused_solve.launches,
                 segment_jac=pk.segment_jac_batch_last.launches)
-
-
-# ------------------------------------------------------------- op counting
-_ELEMENTWISE = {
-    "add", "sub", "rsub", "mul", "div", "neg", "abs", "sin", "cos", "tanh",
-    "sqrt", "rsqrt", "reciprocal", "pow", "maximum", "minimum", "clamp",
-    "clamp_min", "clamp_max", "where", "remainder", "fmod", "gt", "lt", "ge",
-    "le", "eq", "ne", "logical_and", "logical_or", "logical_not",
-    "bitwise_and", "bitwise_or", "bitwise_not", "isfinite", "isnan", "exp",
-    "log", "sign", "floor",
-}
-_REDUCTIONS = {"sum", "amax", "amin", "max", "min", "any", "all", "argmax",
-               "mean"}
-
-
-class OpCounter(TorchDispatchMode):
-    """Arithmetic operations of a plain-version call, as torch dispatches
-    them: one per output element of an elementwise op, one per input
-    element of a reduction, 2mnk per matrix product. Copies, views and
-    allocations count nothing."""
-
-    def __init__(self):
-        super().__init__()
-        self.ops = 0
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
-        name = func.overloadpacket.__name__.rstrip("_")
-        if name in ("mm", "addmm", "bmm"):
-            a, b = (args[1], args[2]) if name == "addmm" else args[:2]
-            self.ops += 2 * a.numel() * b.shape[-1]
-        elif name in _REDUCTIONS:
-            self.ops += args[0].numel()
-        elif name in _ELEMENTWISE and isinstance(out, torch.Tensor):
-            self.ops += out.numel()
-        return out
-
-
-def count_ops(fn) -> int:
-    with OpCounter() as c:
-        fn()
-    return c.ops
-
-
-def bound(n_bytes: float, n_ops: float):
-    """Least time on the card (ms) for the work, and what bounds it."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES, n_ops / PEAK_F32
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
 
 
 def time_cuda(fn, reps, warmup=True):
@@ -785,9 +751,9 @@ def upright_witness():
     tick (``UPRIGHT_WITNESS``)."""
     with open(UPRIGHT_WITNESS) as f:
         w = json.load(f)
-    if w["schedule"][0] != list(DOUBLE_SCHEDULE[0]):
+    if w["schedule"] != [list(phase) for phase in DOUBLE_SCHEDULE]:
         raise SystemExit(f"[double] {UPRIGHT_WITNESS} ran another "
-                         f"transient: {w['schedule'][0]}")
+                         f"schedule: {w['schedule']}")
     return w
 
 
@@ -824,8 +790,9 @@ def check_upright_curve(res, model, card):
 
 def run_double(dev, card, floor):
     """[double]: bench.py's double-pole outcome run on path 1 through
-    ``run_scheduled_closed_loop`` (its first 60 ticks), with its upright
-    share tick by tick against the JAX package's; then the first ticks of
+    ``run_scheduled_closed_loop`` (``DOUBLE_SCHEDULE``, shortened), with
+    its upright share tick by tick against the JAX package's; then the
+    first ticks of
     the same schedule on path 2, and [cross] path 2 against path 1 on the
     cold problem, against ``floor``: the plain version's agreement with
     itself on that problem after a one-ulp nudge
@@ -839,9 +806,11 @@ def run_double(dev, card, floor):
     ticks = sum(n for n, _ in DOUBLE_SCHEDULE)
     res, secs, n1, failed, up = run_loop(
         "double", model, mpc, lambda: pt.run_scheduled_closed_loop(
-            mpc, x0, dp, DOUBLE_SCHEDULE, layout="lanes", fused=True),
+            mpc, x0, dp, DOUBLE_SCHEDULE, layout="lanes", fused=True,
+            max_ticks_per_program=DOUBLE_CHUNK),
         ticks, True, card)
-    print(f"[double] schedule {json.dumps(DOUBLE_SCHEDULE)}: "
+    print(f"[double] schedule {json.dumps(DOUBLE_SCHEDULE)} in chunks of "
+          f"{DOUBLE_CHUNK} ticks: "
           f"fraction_upright {up:.4f}, n_failed {failed} (gate <= "
           f"{DOUBLE_MAX_FAILED}); the JAX bench's 250-tick run of this "
           f"regime: {json.dumps(DOUBLE_REFERENCE)} (TPU v5e, "
@@ -1049,13 +1018,9 @@ def swingup_gate(codes, terminal_predictions, final_state, violations,
 
 
 def sweep_x0s(n, seed=0):
-    """cli.py's ``sweep`` states for the single model: hanging, b_x and
+    """The CLI's ``sweep`` states for the single model: hanging, b_x and
     theta moved by uniform draws in [-0.3, 0.3]."""
-    rng = np.random.RandomState(seed)
-    x0s = np.tile(np.array(DOWN), (n, 1))
-    x0s[:, 0] += rng.uniform(-0.3, 0.3, n)
-    x0s[:, 1] += rng.uniform(-0.3, 0.3, n)
-    return x0s
+    return cli.sweep_x0s(pt.SINGLE_CARTPOLE, DOWN, n, seed)
 
 
 def vmap_agreement(mpc, x0s, dp):
@@ -1133,11 +1098,12 @@ def time_per_instance(mpc, dp, carry, n=10, eager=False):
     return out
 
 
-def run_per_instance(dev, card):
+def run_per_instance(dev, card, kernels_ready=lambda: None):
     """[per-instance]: [oracle], [swing-up], [schur], [vmap] and their
     [timing]; each phase is fatal on failure. No kernel of the repo lies on
     this path: the counts must stay 0 (the comparison with path 2 in
-    [vmap] launches kernel 2 outside the counted runs)."""
+    [vmap] launches kernel 2 outside the counted runs, after
+    ``kernels_ready()`` returns)."""
     from cartpole_tpu_torch import native
 
     t_group = time.perf_counter()
@@ -1212,6 +1178,7 @@ def run_per_instance(dev, card):
     dp32 = pt.default_single_params(torch.float32, dev)
     x0s = torch.as_tensor(sweep_x0s(VMAP_BATCH), dtype=torch.float32,
                           device=dev)
+    kernels_ready()
     r = vmap_agreement(mpc32, x0s, dp32)
     ok, gate = vmap_agreement_ok(r)
     print(f"[vmap] tick 1, vmap(MPC.step) against path 2 (step_lanes, "
@@ -1594,19 +1561,214 @@ def run_diff(dev, card):
     print(f"[diff] {time.perf_counter() - t_group:.1f} s for the group  "
           f"({card})", flush=True)
 
+# ------------------------------------------------------------- CLI group
+#: The [cli] group: the CLI sweep at the smoke's batch, kernel 1's and
+#: kernel 2's ticks, and the per-instance closed loop that is logged and
+#: replayed.
+CLI_BATCH, CLI_TICKS, CLI_TICKS_LANES, CLI_TICKS_LOOP = 4096, 20, 3, 50
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
-def main() -> int:
+
+def cli_main(argv):
+    """``cli.main(argv)`` in this process: its exit code and what it
+    printed."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue()
+
+
+def printed_json(out: str) -> dict:
+    """The JSON object a subcommand printed before its "wrote ..." lines."""
+    return json.loads(out.split("\nwrote ")[0])
+
+
+def free_port() -> int:
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def run_cli(dev, card, tmp) -> dict:
+    """The [cli] group: ``python -m cartpole_tpu_torch`` as a user starts
+    it. Returns each kernel's launches in the group's in-process sweeps."""
+    t_group = time.perf_counter()
+    sweep = ["sweep", "--batch", str(CLI_BATCH), "--f32"]
+
+    # sweep, lanes-fused (kernel 1), traced.
+    res_fused = os.path.join(tmp, "sweep_fused.npz")
+    ptu.set_tracing_enabled(True)
+    ptu.TraceCollector.get_instance().clear()
+    torch.cuda.synchronize()
+    reset_counts()
+    with ptu.trace_scope("cli sweep lanes-fused", batch=CLI_BATCH):
+        rc, out = cli_main(sweep + ["--layout", "lanes-fused", "--steps",
+                                    str(CLI_TICKS), "--results", res_fused])
+    torch.cuda.synchronize()
+    n_fused = counts()
+    ptu.set_tracing_enabled(False)
+    s_fused = printed_json(out)
+    print(f"[cli] sweep --layout lanes-fused, {CLI_TICKS} ticks x batch "
+          f"{CLI_BATCH}, f32: rc {rc}, launches {n_fused}, "
+          f"{json.dumps(s_fused)}  ({card})", flush=True)
+    if (rc != 0 or s_fused["n_failed_solves"] != 0
+            or n_fused != dict(fused_iteration=CLI_TICKS, segment_jac=0)):
+        raise SystemExit("[cli] the lanes-fused sweep failed or did not "
+                         "launch kernel 1 once per tick")
+
+    # sweep, lanes (kernel 2 once per GN iteration).
+    torch.cuda.synchronize()
+    reset_counts()
+    rc, out = cli_main(sweep + ["--layout", "lanes", "--steps",
+                                str(CLI_TICKS_LANES)])
+    torch.cuda.synchronize()
+    n_lanes = counts()
+    s_lanes = printed_json(out)
+    print(f"[cli] sweep --layout lanes, {CLI_TICKS_LANES} ticks x batch "
+          f"{CLI_BATCH}, f32: rc {rc}, launches {n_lanes}, "
+          f"{json.dumps(s_lanes)}  ({card})", flush=True)
+    want = CLI_TICKS_LANES * pt.OptimizationParams().max_iterations
+    if (rc != 0 or s_lanes["n_failed_solves"] != 0
+            or n_lanes != dict(fused_iteration=0, segment_jac=want)):
+        raise SystemExit("[cli] the lanes sweep failed or did not launch "
+                         "kernel 2 once per GN iteration")
+
+    # The same lanes-fused sweep on two ranks of the one card (torchrun,
+    # gloo), each taking half of the same states.
+    res_ranks = os.path.join(tmp, "sweep_2ranks.npz")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+         "2", "--master_addr", "127.0.0.1", "--master_port",
+         str(free_port()), "-m", "cartpole_tpu_torch"] + sweep
+        + ["--layout", "lanes-fused", "--steps", str(CLI_TICKS),
+           "--results", res_ranks],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall2 = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stderr[-3000:], file=sys.stderr)
+        raise SystemExit("[cli] the two-rank sweep failed")
+    s_ranks = printed_json(proc.stdout)
+    a, b = np.load(res_fused), np.load(res_ranks)
+    du = float(np.max(np.abs(a["controls"] - b["controls"])))
+    same_codes = bool(np.array_equal(a["termination_states"],
+                                     b["termination_states"]))
+    diag_keys = sorted(k for k in a.files if k.startswith("diagnostics/"))
+    same_diag = {k.split("/")[1]: bool(np.array_equal(a[k], b[k],
+                                                      equal_nan=True))
+                 for k in diag_keys}
+    print(f"[cli] two ranks on one card (torchrun, gloo), {CLI_TICKS} ticks "
+          f"x {CLI_BATCH // 2} each: {wall2:.1f} s for the command, sweep "
+          f"wall_s {s_ranks['wall_s']}, solves_per_s "
+          f"{s_ranks['solves_per_s']}, devices {s_ranks['devices']}; against "
+          f"one rank: max |du| {du:.3e}, codes identical {same_codes}, "
+          f"diagnostics equal {same_diag}  ({card})", flush=True)
+    if s_ranks["devices"] != 2 or du != 0.0 or not same_codes \
+            or not all(same_diag.values()):
+        raise SystemExit("[cli] the two-rank sweep disagrees with one rank")
+
+    # solve, a process of its own, on the card by default; it runs while
+    # this process runs the closed loop, which is timed for no metric.
+    t0 = time.perf_counter()
+    solve = subprocess.Popen(
+        [sys.executable, "-m", "cartpole_tpu_torch", "solve"], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    # closed-loop, f64, the per-instance path, logged; then replay.
+    log = os.path.join(tmp, "closed_loop.json")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    rc, out = cli_main(["closed-loop", "--steps", str(CLI_TICKS_LOOP),
+                        "--log-json", log])
+    s_loop = printed_json(out)
+    rc_r, out_r = cli_main(["replay", log])
+    s_rep = printed_json(out_r)
+    n_loop = counts()
+    entries = json.load(open(log))
+    print(f"[cli] closed-loop, {CLI_TICKS_LOOP} ticks, f64: rc {rc}, "
+          f"n_failed {s_loop['n_failed']}, wall_s {s_loop['wall_s']}, "
+          f"launches {n_loop}; replay: rc {rc_r}, ticks {s_rep['ticks']}, "
+          f"n_failed {s_rep['n_failed']}, final_state is the log's last "
+          f"{s_rep['final_state'] == entries[-1]['state']}; "
+          f"{time.perf_counter() - t0:.1f} s  ({card})", flush=True)
+    if (rc or rc_r or s_loop["n_failed"] or s_rep["n_failed"]
+            or s_rep["ticks"] != CLI_TICKS_LOOP
+            or s_rep["final_state"] != entries[-1]["state"]
+            or any(n_loop.values())):
+        raise SystemExit("[cli] closed-loop / replay failed")
+
+    try:
+        out, err = solve.communicate(timeout=600)
+    finally:
+        if solve.poll() is None:
+            solve.kill()
+    on = re.search(r"^device: (\S+),", out, re.M)
+    print(f"[cli] solve: rc {solve.returncode}, device "
+          f"{on.group(1) if on else None}, "
+          f"{time.perf_counter() - t0:.1f} s beside the closed loop; "
+          f"{out.splitlines()[0] if out else ''}", flush=True)
+    if solve.returncode != 0 or not on or not on.group(1).startswith("cuda"):
+        print(err[-3000:], file=sys.stderr)
+        raise SystemExit("[cli] solve did not run on the card")
+
+    # The trace of the lanes-fused sweep.
+    trace = json.loads(ptu.TraceCollector.get_instance().get_trace_json())
+    spans = [e for e in trace["traceEvents"]
+             if e["name"] == "cli sweep lanes-fused"]
+    print(f"[cli] trace_scope: {len(trace['traceEvents'])} events, the "
+          f"sweep's span {spans[0]['dur'] / 1e6 if spans else None} s",
+          flush=True)
+    if len(spans) != 1:
+        raise SystemExit("[cli] the trace does not hold the sweep's span")
+    print(f"[cli] {time.perf_counter() - t_group:.1f} s for the group  "
+          f"({card})", flush=True)
+    return {"fused_iteration": n_fused["fused_iteration"],
+            "segment_jac": n_lanes["segment_jac"]}
+
+
+#: The argument that runs only the [diff] group: ``run`` starts it as a
+#: process of its own beside the double's and triple's phases.
+DIFF_GROUP_ARGS = ["--group", "diff"]
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    return run(torch.device("cuda", 0))
+    dev = torch.device("cuda", 0)
+    if argv == DIFF_GROUP_ARGS:
+        strict_vmap()
+        run_diff(dev, _card())
+        return 0
+    if argv:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
+    return run(dev)
+
+
+def strict_vmap():
+    """A batching rule that ``torch.func.vmap`` lacks would run a batch as
+    a loop over its instances: its warning is an error here."""
+    warnings.filterwarnings("error", message="There is a performance drop")
+
+
+def start_diff_group(log_path):
+    """The [diff] group (``python chip_smoke.py --group diff``) as a process
+    of its own, its output into ``log_path``. It launches no kernel of the
+    repo and, like the multi-link runs beside it, keeps the host busy and
+    the card idle ~90 % of the time (PERF.md §5)."""
+    with open(log_path, "w") as log_f:
+        return subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__)] + DIFF_GROUP_ARGS,
+            cwd=ROOT, stdout=log_f, stderr=subprocess.STDOUT)
 
 
 def run(dev) -> int:
     """Every phase on ``dev``; raises ``SystemExit`` on the first failed
-    gate. A batching rule that ``torch.func.vmap`` lacks would run a batch
-    as a loop over its instances: its warning is an error here."""
-    warnings.filterwarnings("error", message="There is a performance drop")
+    gate."""
+    strict_vmap()
     # ---------------------------------------------------------------- device
     card = _card()
     print(f"card: {card}", flush=True)
@@ -1617,12 +1779,37 @@ def run(dev) -> int:
         print(f"[elapsed] {time.perf_counter() - t_start:.1f} s after "
               f"{phases}", flush=True)
 
-    # ----------------------------------------------------------------- build
+    # ------------------------------------------------------ build, in a thread
+    # nvcc builds the kernels while the per-instance group, which needs no
+    # kernel until its [vmap] comparison with path 2, runs beside it.
     t0 = time.perf_counter()
-    path, log = _build.build_library()
+    built = {}
+
+    def build():
+        try:
+            built["out"] = _build.build_library()
+            built["s"] = time.perf_counter() - t0
+        except BaseException as e:  # noqa: BLE001 - re-raised on join
+            built["error"] = e
+
+    builder = threading.Thread(target=build)
+    builder.start()
+
+    def kernels_ready():
+        builder.join()
+        if "error" in built:
+            raise built["error"]
+
+    try:
+        run_per_instance(dev, card, kernels_ready)
+    finally:
+        builder.join()
+    elapsed("the per-instance group")
+    kernels_ready()
+    path, log = built["out"]
     _build.load_library()
-    build_s = time.perf_counter() - t0
-    print(f"[build] {build_s:.1f} s -> {os.path.relpath(path)}; seconds "
+    print(f"[build] {built['s']:.1f} s beside the per-instance group -> "
+          f"{os.path.relpath(path)}; seconds "
           f"per source: {' '.join(re.findall(r'^== (.*)$', log, re.M))}",
           flush=True)
     if not log:
@@ -1788,17 +1975,32 @@ def run(dev) -> int:
 
     elapsed("path 2 and cross")
 
-    # ------------------------------------------ the double and triple poles
-    checks_d = check_multilink_kernels(pt.DOUBLE_CARTPOLE, dev, card)
-    run_d = run_double(dev, card, checks_d["floor"])
-    elapsed("the double's phases")
-    checks_t = check_multilink_kernels(pt.TRIPLE_CARTPOLE, dev, card)
-    run_t = run_triple(dev, card)
-    elapsed("the triple's phases")
-    run_per_instance(dev, card)
-    elapsed("the per-instance group")
-    run_diff(dev, card)
-    elapsed("the diff group")
+    # ---------------- the double and triple poles, the diff group beside them
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    tmp = os.path.join(out_dir, "cli")
+    os.makedirs(tmp, exist_ok=True)
+    diff_log = os.path.join(out_dir, "diff_group.log")
+    diff = start_diff_group(diff_log)
+    try:
+        checks_d = check_multilink_kernels(pt.DOUBLE_CARTPOLE, dev, card)
+        run_d = run_double(dev, card, checks_d["floor"])
+        elapsed("the double's phases")
+        checks_t = check_multilink_kernels(pt.TRIPLE_CARTPOLE, dev, card)
+        run_t = run_triple(dev, card)
+        elapsed("the triple's phases")
+        diff_rc = diff.wait(timeout=1200)
+    finally:
+        if diff.poll() is None:
+            diff.kill()
+            diff.wait()
+    with open(diff_log) as f:
+        print(f.read(), end="", flush=True)
+    elapsed("the diff group (its own process, beside the double's and "
+            "triple's phases)")
+    if diff_rc != 0:
+        raise SystemExit(f"[diff] the group's process exited {diff_rc}")
+    n_cli = run_cli(dev, card, tmp)
+    elapsed("the cli group")
     multilink = {pt.DOUBLE_CARTPOLE: (checks_d, run_d),
                  pt.TRIPLE_CARTPOLE: (checks_t, run_t)}
 
@@ -1937,7 +2139,7 @@ def run(dev) -> int:
             "route": "cuda",
             "source": "cartpole_tpu_torch/csrc/fused_iteration.cu",
             "replaces": "cartpole_tpu/ops/fused.py:938",
-            "launches": n1["fused_iteration"],
+            "launches": n1["fused_iteration"] + n_cli["fused_iteration"],
             "max_abs_err": max(r_cold["max_abs_du"], r_ragged["max_abs_du"],
                                r_warm["max_abs_du"]),
             "ms": kern_ms,
@@ -1951,7 +2153,7 @@ def run(dev) -> int:
             "route": "cuda",
             "source": "cartpole_tpu_torch/csrc/segment_jac.cu",
             "replaces": "cartpole_tpu/ops/pallas_kernels.py:189",
-            "launches": n2["segment_jac"],
+            "launches": n2["segment_jac"] + n_cli["segment_jac"],
             "max_abs_err": seg_err,
             "ms": k2_ms,
             "plain_ms": k2_plain_ms,

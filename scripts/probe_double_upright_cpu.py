@@ -6,7 +6,8 @@ The regime is bench.py's double-pole outcome run (``_double_health``):
 ``DOUBLE_SOFT_OPT_KWARGS`` with 8 GN iterations and spacing 5, the
 perturbed-upright states of ``make_x0s("double", 4096, seed=0)`` (the
 first ``--batch`` of them), f32, and the schedule
-``[(50, {"u_derivative_cost_weight": 0.8}), (ticks - 50, None)]`` through
+``[(transient, {"u_derivative_cost_weight": 0.8}), (ticks - transient,
+None)]`` (bench.py's transient is 50 ticks) through
 ``run_scheduled_closed_loop(layout="lanes", fused=False)`` (the XLA body;
 the Pallas kernel would run in interpret mode here). Records, for every
 tick, the share of instances with every link within 0.1 rad of upright
@@ -14,9 +15,11 @@ tick, the share of instances with every link within 0.1 rad of upright
 each tick from, and after the last tick; and the count of failed solves.
 
 Usage: python scripts/probe_double_upright_cpu.py [--batch 512]
-       [--ticks 250] [--out double_upright_jax_cpu.json]
+       [--ticks 250] [--transient 50] [--out double_upright_jax_cpu.json]
 (the defaults wrote the committed double_upright_jax_cpu.json, in about an
-hour on an 8-core CPU).
+hour on an 8-core CPU; ``--ticks 15 --transient 10 --out
+double_upright_switch_jax_cpu.json`` wrote the witness of the smoke's
+shortened schedule, which switches to the base weights at tick 10).
 """
 
 import argparse
@@ -70,6 +73,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=512)
     ap.add_argument("--ticks", type=int, default=250)
+    ap.add_argument("--transient", type=int, default=TRANSIENT_TICKS)
     ap.add_argument("--chunk", type=int, default=25)
     ap.add_argument("--out", default="double_upright_jax_cpu.json")
     args = ap.parse_args()
@@ -81,8 +85,8 @@ def main():
         **SOFT, max_iterations=8, state_spacing=5, kkt_method="condensed"),
         model)
     x0 = jnp.asarray(make_x0s(4096)[:args.batch], jnp.float32)
-    schedule = [(TRANSIENT_TICKS, TRANSIENT),
-                (args.ticks - TRANSIENT_TICKS, None)]
+    schedule = [(args.transient, TRANSIENT),
+                (args.ticks - args.transient, None)]
     t0 = time.perf_counter()
     res = run_scheduled_closed_loop(
         mpc, x0, dp, schedule, layout="lanes", fused=False,

@@ -236,6 +236,15 @@ def test_port_never_reaches_the_jax_package(tmp_path):
     for d, _, names in os.walk(os.path.join(ROOT, "cartpole_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
+    # The entry points and their subpackages are scanned too.
+    scanned = {os.path.relpath(f, os.path.join(ROOT, "cartpole_tpu_torch"))
+               for f in files}
+    for need in ("cli.py", "__main__.py", "pypendulum.py", "analysis.py",
+                 "viz.py", "parallel/mesh.py", "parallel/sharded.py",
+                 "utils/logging.py", "utils/replay.py", "utils/tracing.py",
+                 "utils/checkpoint.py", "utils/debug.py",
+                 "utils/roofline.py"):
+        assert need in scanned, need
     found = {os.path.relpath(f, ROOT): r for f in files
              if (r := _jax_refs(f))}
     assert not found

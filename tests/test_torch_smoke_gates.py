@@ -3,7 +3,7 @@
 ``floor_ok`` (a kernel or a path against the plain version's agreement
 with itself after a one-ulp nudge) and ``check_upright_curve`` (the double
 pole's upright share tick by tick against the JAX package's, from the
-committed ``double_upright_jax_cpu.json``) accept what lies inside their
+committed ``double_upright_switch_jax_cpu.json``) accept what lies inside their
 bounds and refuse what lies outside.
 """
 
