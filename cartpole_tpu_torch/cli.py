@@ -1,5 +1,5 @@
-"""Command-line interface: solve / closed-loop / sweep / replay drivers
-(counterpart of ``cartpole_tpu/cli.py``).
+"""Command-line interface: solve / closed-loop / sweep / interactive / web /
+replay drivers (counterpart of ``cartpole_tpu/cli.py``).
 
 The same flags and printed JSON keys as the JAX package's CLI, on the card:
 the tensors live on the CUDA device unless ``--cpu`` asks for the CPU, and
@@ -13,6 +13,8 @@ Usage::
     python -m cartpole_tpu_torch closed-loop --steps 250 --log-json log.json
     python -m cartpole_tpu_torch sweep --batch 4096 --steps 100 --f32
     torchrun --nproc_per_node 2 -m cartpole_tpu_torch sweep --batch 4096
+    python -m cartpole_tpu_torch interactive
+    python -m cartpole_tpu_torch web --port 8080
     python -m cartpole_tpu_torch replay log.json --charts charts.png
 
 ``sweep`` runs through ``parallel/``: under ``torchrun`` each rank takes its
@@ -178,6 +180,44 @@ def _cmd_closed_loop(args) -> int:
         plot_closed_loop(res, control_dt=mpc.params.control_dt,
                          save_to=args.plot)
         print(f"wrote {args.plot}")
+    return 0
+
+
+def _interactive_loop(args):
+    """The ``InteractiveLoop`` of the common flags, from ``x0`` at the set
+    point."""
+    from .interactive import InteractiveLoop
+
+    mpc, dynamics_params, x0, dtype, device = _setup(args)
+    loop = InteractiveLoop(params=mpc.params, dynamics_params=dynamics_params,
+                           dtype=dtype, model=mpc.model, device=device,
+                           render=False)
+    loop.x = x0
+    loop.set_point = args.set_point
+    return loop
+
+
+def _cmd_interactive(args) -> int:
+    loop = _interactive_loop(args)
+    if not sys.stdin.isatty():
+        print("no tty: running 200 scripted ticks with a pole poke at t=1s",
+              file=sys.stderr)
+        cmds = [None] * 100 + ["p"] + [None] * 99
+        loop.run(max_ticks=200, realtime=False, commands=cmds)
+        print(f"final state: {[round(float(v), 4) for v in loop.x]}")
+    else:
+        loop.render = True
+        loop.run()
+    if args.log_json:
+        loop.log.save(args.log_json)
+        print(f"wrote {args.log_json}")
+    return 0
+
+
+def _cmd_web(args) -> int:
+    from .web import serve
+
+    serve(args.host, args.port, loop=_interactive_loop(args))
     return 0
 
 
@@ -357,6 +397,31 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         "state (gathered from every rank), the diagnostics and the summary "
         "to this .npz (utils.save_state)")
     ap_sw.set_defaults(fn=_cmd_sweep)
+
+    ap_int = sub.add_parser(
+        "interactive",
+        help="live terminal closed loop: poke the plant, tweak params "
+        "(the web-demo capability; keys: b/B/p/P poke, c toggle "
+        "controller, 1-4 mass/length, t cost<->equality, r reset, q "
+        "quit); with no tty, 200 scripted ticks with a pole poke at tick "
+        "100. On the card every tick after a rebuild's first replays a "
+        "CUDA graph")
+    _add_common(ap_int)
+    ap_int.add_argument(
+        "--log-json", default=None,
+        help="write the solve log (the web page's 'Save log' payload, one "
+        "entry per solved tick) here at exit")
+    ap_int.set_defaults(fn=_cmd_interactive)
+
+    ap_web = sub.add_parser(
+        "web",
+        help="browser demo: canvas renderer + mouse pokes + live param "
+        "sliders over a local HTTP server (the reference web app's "
+        "capability, solver server-side on the card)")
+    _add_common(ap_web)
+    ap_web.add_argument("--host", default="127.0.0.1")
+    ap_web.add_argument("--port", type=int, default=8080)
+    ap_web.set_defaults(fn=_cmd_web)
 
     ap_rp = sub.add_parser(
         "replay",

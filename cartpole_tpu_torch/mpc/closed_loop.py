@@ -83,23 +83,39 @@ def tick_fn(mpc: MPC, dynamics_params, set_point, auto_reset: bool = True):
     return tick
 
 
+#: One warm-up stream per device, made on first use and kept: the solver
+#: libraries keep a workspace for each stream they run on (~33.5 MB on an
+#: H100 80GB HBM3 at 700.00 W, PERF.md) and never free it, so a new stream
+#: per capture would grow the card's memory with every capture.
+_WARMUP_STREAMS: dict[int, torch.cuda.Stream] = {}
+
+
+def _warmup_stream() -> torch.cuda.Stream:
+    dev = torch.cuda.current_device()
+    if dev not in _WARMUP_STREAMS:
+        _WARMUP_STREAMS[dev] = torch.cuda.Stream(dev)
+    return _WARMUP_STREAMS[dev]
+
+
 class CUDAGraphTick:
     """``fn`` captured once in a CUDA graph on the current stream, and
     replayed for every call: each call copies its arguments into the
     captured inputs, replays, and returns clones of the captured outputs.
 
     ``fn`` must take and return tensors on the card, read nothing back to
-    the host and keep the shapes of ``example_args``; the first call (on a
-    side stream, as capture requires) warms up what is made once, such as
-    the problem's statics on the device and the solver libraries'
-    handles. The graph and its memory live as long as this object."""
+    the host and keep the shapes of ``example_args``. Before the capture
+    ``fn`` runs once eagerly on the device's one warm-up stream, as
+    capture requires, which makes what is made once, such as the problem's
+    statics on the device and the solver libraries' handles; its outputs,
+    those of ``fn`` on ``example_args``, are kept as ``warmup_outputs``.
+    The graph and its memory live as long as this object."""
 
     def __init__(self, fn, example_args):
         self.inputs = tuple(a.clone() for a in example_args)
-        side = torch.cuda.Stream()
+        side = _warmup_stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
-            fn(*self.inputs)
+            self.warmup_outputs = fn(*self.inputs)
         torch.cuda.current_stream().wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):

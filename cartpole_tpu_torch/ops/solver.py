@@ -26,7 +26,11 @@ import torch
 from torch.func import vmap
 
 __all__ = ["NLSTerminationState", "NLSConfig", "NLSProblem", "NLSOutputs",
-           "solve_nls", "termination_state_name", "full_f32_matmul"]
+           "solve_nls", "termination_state_name", "full_f32_matmul",
+           "KKT_METHODS"]
+
+#: The names ``NLSConfig.kkt_method`` takes.
+KKT_METHODS = ("lu", "schur", "condensed")
 
 
 class NLSTerminationState:
@@ -267,7 +271,7 @@ def _kkt_solve_schur(J, r, A, c, lam):
 
 
 def _solve_nls_impl(problem: NLSProblem, z0, config: NLSConfig):
-    if config.kkt_method not in ("lu", "schur", "condensed"):
+    if config.kkt_method not in KKT_METHODS:
         raise ValueError(
             f"unknown kkt_method {config.kkt_method!r}; "
             "expected 'lu', 'schur', or 'condensed'")

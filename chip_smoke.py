@@ -64,14 +64,32 @@ the cli group, the entry points as a user starts them
 lanes-fused sweep on two ranks of the one card under ``torchrun`` (gloo)
 against one rank, ``closed-loop`` in f64 with ``--log-json`` and its
 ``replay``, ``solve`` as a process of its own, and the sweep's
-``trace_scope`` span. The kernels line counts the launches of path 1 and
-path 2 and of the group's sweeps.
+``trace_scope`` span. The interactive demo's groups run as a process of
+their own (``--group interactive``) beside path 1 and path 2, and launch no
+kernel of the repo: interactive (``python -m cartpole_tpu_torch
+interactive`` without a tty, a process of its own, against the JAX
+package's run of it, ``interactive_jax_cpu.json``; an ``InteractiveLoop``
+through a poke, a dynamics slider, a set point, the ``t`` rebuild, the
+controller off and on and a reset, each replayed tick held to the eager
+tick on the same inputs bit for bit; a replayed tick's and a rebuild's
+time, and the card's memory over rebuilds and ``run_closed_loop`` calls),
+web (a ``WebApp`` on the card:
+every route, the 400s of malformed bodies, and its realtime tick thread's
+simulated seconds per wall second) and triple-swingup
+(tests/test_triple.py::TestTrackedSwingUp: the plan of
+``triple_swingup_traj.npz`` replayed open loop, a plant step captured in a
+CUDA graph, then ``run_closed_loop``'s 150-tick catch, its gates, and
+both states beside the JAX package's, ``triple_tracked_jax_cpu.json``).
+The kernels line counts the launches of path 1 and path 2 and of the
+group's sweeps.
 Every kernel launch counter is set to 0 just before a path is driven and
 read just after. Prints the card's name and power limit beside every
 number, one JSON line describing the kernels, and as its last line
 ``{"ok": true, "device": {...}}``.
 
-Usage: python3 chip_smoke.py   (``--group diff``: only the diff group)
+Usage: python3 chip_smoke.py   (``--group diff``: only the diff group;
+``--group interactive``: only the interactive, web and triple-swingup
+groups)
 Needs one CUDA device, nvcc (CUDA toolkit) and the repository beside it.
 """
 
@@ -79,11 +97,13 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import math
 import os
 import re
+import signal
 import socket
 import subprocess
 import sys
@@ -1727,9 +1747,501 @@ def run_cli(dev, card, tmp) -> dict:
             "segment_jac": n_lanes["segment_jac"]}
 
 
+# ------------------------------------------- the interactive demo and web
+#: The [interactive] group's witness: the JAX package's run of
+#: ``python -m cartpole_tpu interactive`` without a tty on a CPU (f64,
+#: the CLI's defaults: window 40, spacing 10, 8 GN iterations; the pole
+#: poked before tick 101), every 10th tick's solve-log entry
+#: (scripts/probe_interactive_jax_cpu.py).
+INTERACTIVE_WITNESS = os.path.join(ROOT, "interactive_jax_cpu.json")
+#: The 1-based ticks whose log entries are held to the witness: the swing-up,
+#: the tick before the poke, the recovery and the last. The tolerances are
+#: the [oracle] gate's.
+INTERACTIVE_CHECK_TICKS = (50, 100, 150, 200)
+INTERACTIVE_DU, INTERACTIVE_DX = ORACLE_DU, ORACLE_DX
+#: Replays of the interactive tick timed, rebuilds whose memory is
+#: compared, and the wall seconds of the [web] realtime run.
+INTERACTIVE_TIMED_TICKS, INTERACTIVE_REBUILDS, WEB_REALTIME_S = 10, 5, 10.0
+#: The [triple-swingup] witness (scripts/probe_triple_tracked_jax_cpu.py):
+#: tests/test_triple.py::TestTrackedSwingUp through the JAX package on a
+#: CPU, f64. Its plan, and the replay's and catch's depths and gates.
+TRIPLE_TRACKED_WITNESS = os.path.join(ROOT, "triple_tracked_jax_cpu.json")
+TRIPLE_TRAJ = os.path.join(ROOT, "triple_swingup_traj.npz")
+TRIPLE_CATCH_KWARGS = dict(
+    window_length=60, state_spacing=5, max_iterations=8,
+    th_final_cost_weight=150.0, th_dot_final_cost_weight=10.0,
+    b_x_dot_final_cost_weight=10.0, u_guess_sinusoid_amplitude=0.0)
+TRIPLE_CATCH_TICKS = 150
+#: tests/test_triple.py:229-266: the mid-swing state's distance from the
+#: plan, the final angle error and velocities.
+TRIPLE_MID_TOL, TRIPLE_ANGLE_TOL, TRIPLE_VEL_TOL = 0.5, 1e-2, 0.1
+
+
+def interactive_witness():
+    with open(INTERACTIVE_WITNESS) as f:
+        return json.load(f)
+
+
+def triple_tracked_witness():
+    with open(TRIPLE_TRACKED_WITNESS) as f:
+        return json.load(f)
+
+
+def entry_state(entry):
+    """The single pole's packed state ``[b_x, th_1, b_x_dot, th_1_dot]``
+    from a solve-log entry's ``initial_state``."""
+    s = entry["initial_state"]
+    return [s["b_x"], s["th_1"], s["b_x_dot"], s["th_1_dot"]]
+
+
+def interactive_gate(entries, printed_final, witness):
+    """The CLI's scripted run (its solve log ``entries``, one per tick, and
+    the final state it printed) against the JAX package's
+    (``interactive_jax_cpu.json``): at each of INTERACTIVE_CHECK_TICKS the
+    tick's state within INTERACTIVE_DX, its ``u[0]`` within INTERACTIVE_DU
+    and the same termination state; the printed final state equal to the
+    witness's, both rounded to 4 decimals, within one unit of the last
+    place."""
+    if len(entries) != INTERACTIVE_CHECK_TICKS[-1]:
+        return dict(n_entries=len(entries), ok=False)
+    idx = [witness["ticks"].index(n) for n in INTERACTIVE_CHECK_TICKS]
+    x = np.array([entry_state(entries[n - 1])
+                  for n in INTERACTIVE_CHECK_TICKS])
+    u = np.array([entries[n - 1]["u"][0] for n in INTERACTIVE_CHECK_TICKS])
+    codes = [entries[n - 1]["solver_outputs"]["termination_state"]
+             for n in INTERACTIVE_CHECK_TICKS]
+    dx = float(np.abs(x - np.array(witness["states"])[idx]).max())
+    du = float(np.abs(u - np.array(witness["u0"])[idx]).max())
+    same_codes = codes == [witness["termination_states"][i] for i in idx]
+    d_final = float(np.abs(np.asarray(printed_final)
+                           - witness["final_state_printed"]).max())
+    ok = (dx <= INTERACTIVE_DX and du <= INTERACTIVE_DU and same_codes
+          and d_final <= 1e-4 + 1e-9)
+    return dict(max_abs_dx=dx, max_abs_du=du, codes_equal=same_codes,
+                printed_final_dx=d_final, ok=bool(ok))
+
+
+def triple_tracked_gate(x_mid, x_plan, codes, xf):
+    """tests/test_triple.py::TestTrackedSwingUp's gates (numpy arrays): the
+    mid-swing state within TRIPLE_MID_TOL of the plan, no QP_INDEFINITE or
+    MAX_LAMBDA code in the catch, every link within TRIPLE_ANGLE_TOL of
+    upright and every velocity below TRIPLE_VEL_TOL at its end."""
+    mid = float(np.abs(x_mid - x_plan).max())
+    ang = float(_upright_error(xf[1:4]).max())
+    vel = float(np.abs(xf[4:]).max())
+    checks = dict(
+        mid_swing_on_plan=mid < TRIPLE_MID_TOL,
+        no_failed_solve=not bool(np.any((codes == 3) | (codes == 4))),
+        final_upright=ang < TRIPLE_ANGLE_TOL,
+        final_at_rest=vel < TRIPLE_VEL_TOL)
+    return dict(checks, ok=all(checks.values()), mid_swing_dx=mid,
+                final_angle_error=ang, final_max_abs_velocity=vel)
+
+
+def eager_tick(loop):
+    """The loop's next tick as eager calls on its current inputs (plant
+    state, warm start, dynamics parameters, set point, poke forces):
+    ``MPC.step`` and the plant step, or the plant step alone with the
+    controller off. Returns ``(x_next, previous_solution, warm, u)``."""
+    dt, dev, dtype = loop.params.control_dt, loop.device, loop.dtype
+    f = torch.tensor(loop.forces, dtype=dtype, device=dev)
+    st = loop.mpc_state
+    if loop.enabled:
+        out, st = loop.mpc.step(st, loop.x, loop.dp, torch.tensor(
+            float(loop.set_point), dtype=dtype, device=dev))
+        u, u0 = out.u, out.u[0]
+    else:
+        u = None
+        u0 = torch.zeros((), dtype=dtype, device=dev)
+    x_next = pt.simulator_step(
+        loop.dp, loop.x, dt, u0, f_base=f[0], f_mass=f[1], model=loop.model,
+        f_mass_2=f[2] if len(f) > 2 else None)
+    return x_next, st.previous_solution, st.warm, u
+
+
+def same_tick(a, b):
+    return all((p is None and q is None) or (
+        p is not None and q is not None and torch.equal(p, q))
+        for p, q in zip(a, b))
+
+
+def run_interactive(dev, card, tmp):
+    """[interactive]: the CLI's scripted run as a process of its own,
+    against the JAX package's, while an InteractiveLoop is driven through
+    each mutation, every replayed tick after one held to the eager tick on
+    the same inputs; then, with the CLI's process ended, the replayed
+    tick's and a rebuild's time and the card's memory over rebuilds. No
+    kernel of the repo lies on this path."""
+    t_group = time.perf_counter()
+    log = os.path.join(tmp, "interactive_log.json")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "cartpole_tpu_torch", "interactive",
+         "--log-json", log], cwd=ROOT, stdin=subprocess.DEVNULL,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    try:
+        reset_counts()
+        loop = check_mutations(dev, card)
+        out, err = proc.communicate(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(err[-3000:], file=sys.stderr)
+        raise SystemExit("[interactive] the CLI's scripted run failed")
+    m = re.search(r"^final state: (\[.*\])$", out, re.M)
+    entries = json.load(open(log))
+    g = interactive_gate(entries, json.loads(m.group(1)) if m else [math.nan],
+                         interactive_witness())
+    print(f"[interactive] python -m cartpole_tpu_torch interactive (no tty: "
+          f"200 ticks, the pole poked before tick 101), f64, window 40, a "
+          f"process of its own: {wall:.1f} s; ticks "
+          f"{list(INTERACTIVE_CHECK_TICKS)} against the JAX package's run "
+          f"(interactive_jax_cpu.json): {json.dumps(g)}, gate states atol "
+          f"{INTERACTIVE_DX:g}, max |du| <= {INTERACTIVE_DU:g}, equal "
+          f"codes; printed {m.group(1) if m else None}  ({card})",
+          flush=True)
+    if not g["ok"]:
+        raise SystemExit("[interactive] the CLI's run departs from the JAX "
+                         "package's")
+    time_interactive(loop, card)
+    n_launch = counts()
+    if any(n_launch.values()):
+        raise SystemExit(f"[interactive] launched a kernel of the repo: "
+                         f"{n_launch}")
+    print(f"[interactive] {time.perf_counter() - t_group:.1f} s for the "
+          f"group  ({card})", flush=True)
+
+
+def check_mutations(dev, card):
+    """An InteractiveLoop on the card (f64, its default params) through
+    each mutation, every replayed tick after one held to the eager tick on
+    the same inputs, and to differ from the tick of the unchanged inputs
+    where the mutation is an input. Returns the loop."""
+    from cartpole_tpu_torch.interactive import InteractiveLoop
+
+    f64 = torch.float64
+    loop = InteractiveLoop(dtype=f64, render=False)
+    loop.x = torch.tensor([0.05, math.pi / 2 + 0.1, 0.0, 0.0], dtype=f64,
+                          device=dev)
+    loop.tick()  # eager, and captured
+
+    mutations = (
+        ("poke (p)", lambda: loop.handle_command("p"), True),
+        ("set_dynamics(m_1=0.13)", lambda: loop.set_dynamics(m_1=0.13), True),
+        ("set point 0.2", lambda: setattr(loop, "set_point", 0.2), True),
+        ("t (rebuild)", lambda: loop.handle_command("t"), False),
+        ("c (off)", lambda: loop.handle_command("c"), False),
+        ("c (on)", lambda: loop.handle_command("c"), False),
+        ("r (reset)", lambda: loop.handle_command("r"), False),
+    )
+    results = {}
+    for name, mutate, stale_check in mutations:
+        stale = eager_tick(loop) if stale_check else None
+        mutate()
+        ticks = loop._mpc_tick if loop.enabled else loop._plant_tick
+        if ticks.graph is None:
+            loop.tick()  # a build's first tick: eager, and captured
+        fresh = eager_tick(loop)
+        out = loop.tick()
+        got = (loop.x, loop.mpc_state.previous_solution, loop.mpc_state.warm,
+               None if out is None else out.u)
+        r = dict(replayed=ticks.graph is not None,
+                 equals_eager=same_tick(got, fresh))
+        if stale is not None:
+            r["differs_from_unchanged_inputs"] = not same_tick(got, stale)
+        results[name] = r
+    ok = all(r["replayed"] and r["equals_eager"]
+             and r.get("differs_from_unchanged_inputs", True)
+             for r in results.values())
+    print(f"[interactive] mutations, f64, the loop's default params (window "
+          f"40, spacing 5, 8 iterations): each replayed "
+          f"tick against MPC.step and the plant step run eagerly on the "
+          f"same inputs (bit for bit): {json.dumps(results)}  ({card})",
+          flush=True)
+    if not ok:
+        raise SystemExit("[interactive] a replayed tick departs from the "
+                         "eager tick, or a change did not reach the graph")
+    return loop
+
+
+def time_interactive(loop, card):
+    """A replayed tick of ``loop`` as the demo runs it (solve, plant, log),
+    its graph's replay alone, and beside them a replay of
+    ``run_closed_loop``'s tick (``tick_fn``) at the same params; a rebuild
+    up to its first replay; ``torch.cuda.memory_allocated`` after each of
+    INTERACTIVE_REBUILDS rebuilds, and after each of as many
+    ``run_closed_loop`` calls (each captures a graph of its own), which
+    may not grow."""
+    ms = tick_ms(loop.tick, INTERACTIVE_TIMED_TICKS)
+    graph = loop._mpc_tick.graph.graph
+    replay_ms = tick_ms(graph.replay, INTERACTIVE_TIMED_TICKS)
+    prof = profile_calls(loop.tick)
+    same = time_per_instance(loop.mpc, loop.dp, (
+        loop.x, loop.mpc_state.previous_solution, loop.mpc_state.warm),
+        n=INTERACTIVE_TIMED_TICKS)
+    alloc = []
+    rebuild_ms = []
+    for _ in range(INTERACTIVE_REBUILDS):
+        torch.cuda.synchronize()
+        t0r = time.perf_counter()
+        loop.handle_command("t")
+        t1r = time.perf_counter()
+        loop.tick()
+        torch.cuda.synchronize()
+        t2r = time.perf_counter()
+        loop.tick()
+        torch.cuda.synchronize()
+        t3r = time.perf_counter()
+        rebuild_ms.append(((t1r - t0r) * 1e3, (t2r - t1r) * 1e3,
+                           (t3r - t2r) * 1e3))
+        gc.collect()
+        alloc.append(torch.cuda.memory_allocated())
+    loop_alloc = []
+    for _ in range(INTERACTIVE_REBUILDS):
+        cl.run_closed_loop(loop.mpc, loop.x, loop.dp, num_steps=2)
+        gc.collect()
+        loop_alloc.append(torch.cuda.memory_allocated())
+    n_launch = counts()
+    mem_ok = alloc[-1] <= alloc[0] and loop_alloc[-1] <= loop_alloc[0]
+    rebuild = np.median(np.array(rebuild_ms), axis=0)
+    print(f"[timing] interactive, single f64, window 40, spacing 5: a "
+          f"replayed tick (inputs in, replay, outputs out, the log entry) "
+          f"{float(np.median(ms)):.2f} ms median of "
+          f"{INTERACTIVE_TIMED_TICKS}, its graph's replay alone "
+          f"{float(np.median(replay_ms)):.2f} ms; one tick under "
+          f"torch.profiler {json.dumps(prof)}; run_closed_loop's tick at "
+          f"the same params, replayed: {same['graph_ms']:.2f} ms, under "
+          f"torch.profiler {json.dumps(same['graph_profile'])}; a rebuild "
+          f"(t), medians over "
+          f"{INTERACTIVE_REBUILDS}: the MPC {rebuild[0]:.1f} ms, its first "
+          f"tick (eager, and captured) {rebuild[1]:.1f} ms, its second "
+          f"tick (the first replay) {rebuild[2]:.1f} ms, "
+          f"{float(np.median([sum(r) for r in rebuild_ms])):.1f} ms to its "
+          f"first replay; "
+          f"torch.cuda.memory_allocated after rebuild 1 {alloc[0]} B, after "
+          f"rebuild {INTERACTIVE_REBUILDS} {alloc[-1]} B (all: {alloc}); "
+          f"after run_closed_loop (2 ticks) call 1 {loop_alloc[0]} B, after "
+          f"call {INTERACTIVE_REBUILDS} {loop_alloc[-1]} B (all: "
+          f"{loop_alloc}); launches {n_launch}  ({card})", flush=True)
+    if not mem_ok:
+        raise SystemExit("[interactive] the card's memory grows over "
+                         "rebuilds or run_closed_loop calls")
+
+
+def http(base, path, payload=None):
+    """GET ``path`` (POST ``payload`` as JSON when given): the status and
+    the body, parsed as JSON unless it is the page or empty (``/traces``
+    while tracing is off)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        base + path, method="GET" if payload is None else "POST",
+        data=None if payload is None else json.dumps(payload).encode())
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            status, body = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        status, body = e.code, e.read()
+    return status, (json.loads(body) if body and path != "/"
+                    else body.decode())
+
+
+#: Every route once, then malformed bodies: (method path, body, status).
+WEB_ROUTES = (
+    ("/", None, 200), ("/state", None, 200), ("/tick", {"n": 3}, 200),
+    ("/poke", {"mass_index": 1, "incident_angle": 0.0}, 200),
+    ("/dynamics", {"m_1": 0.12}, 200),
+    ("/control", {"set_point": 0.1, "sim_rate": 1.0}, 200),
+    ("/tick", {"n": 1}, 200),
+    ("/optimization", {"th_final_cost_weight": 120.0}, 200),
+    ("/tick", {"n": 2}, 200), ("/reset", {}, 200),
+    ("/control", {"enabled": False}, 200), ("/tick", {"n": 2}, 200),
+    ("/control", {"enabled": True}, 200), ("/tick", {"n": 1}, 200),
+    ("/log", None, 200),
+    ("/traces", None, 200), ("/leak", None, 200), ("/nope", None, 404),
+    ("/poke", {"incident_angle": 0.0}, 400),
+    ("/poke", {"mass_index": "zero", "incident_angle": 0.0}, 400),
+    ("/dynamics", {"m_1": "heavy"}, 400), ("/dynamics", {"nope": 1.0}, 400),
+    ("/optimization", {"u_cost_weight": True}, 400),
+    ("/optimization", {"kkt_method": "qr"}, 400),
+    ("/optimization", {"window_length": 40.5}, 400),
+    ("/optimization", {"window_length": -3}, 400),
+    ("/optimization", {"bogus": 1.0}, 400),
+    ("/control", {"enabled": "yes"}, 400), ("/tick", {"n": 0}, 400),
+    ("/reset", {"hard": True}, 400), ("/control", [1, 2], 400),
+)
+
+
+def run_web(dev, card):
+    """[web]: a WebApp on port 0 on the card, every route once and the 400s
+    of malformed bodies; then its realtime tick thread for WEB_REALTIME_S
+    of wall time: simulated seconds per wall second. No kernel of the repo
+    lies on this path."""
+    from cartpole_tpu_torch.interactive import InteractiveLoop
+    from cartpole_tpu_torch.web import WebApp
+
+    t_group = time.perf_counter()
+    reset_counts()
+    app = WebApp(loop=InteractiveLoop(dtype=torch.float64, render=False),
+                 realtime=False)
+    host, port = app.start("127.0.0.1", 0)
+    base = f"http://{host}:{port}"
+    got = []
+    try:
+        for path, body, want in WEB_ROUTES:
+            status, _ = http(base, path, body)
+            got.append((path, status, want))
+        snap = http(base, "/state")[1]
+    finally:
+        app.stop()
+    bad = [g for g in got if g[1] != g[2]]
+    ok = (not bad and snap["tick"] == 9 and snap["enabled"]
+          and snap["optimization"]["th_final_cost_weight"] == 120.0
+          and abs(snap["dynamics"]["m_1"] - 0.12) < 1e-12
+          and snap["predicted"] is not None)
+    print(f"[web] WebApp on the card, {len(WEB_ROUTES)} requests (every "
+          f"route, the 400s of malformed bodies, /optimization's "
+          f"included): {len(got) - len(bad)} with the expected status, "
+          f"wrong: {bad}; /state after them: tick {snap['tick']}, "
+          f"x {snap['x']}, error {snap['error']}  ({card})", flush=True)
+    if not ok:
+        raise SystemExit("[web] a route answered wrongly")
+
+    # Realtime: the tick thread builds, captures and replays under the
+    # app's lock while this thread polls /state and /leak.
+    app = WebApp(loop=InteractiveLoop(dtype=torch.float64, render=False),
+                 realtime=True)
+    host, port = app.start("127.0.0.1", 0)
+    base = f"http://{host}:{port}"
+    lp = app.loop
+    try:
+        deadline = time.perf_counter() + 120
+        polls = 0
+        while lp._mpc_tick.graph is None and time.perf_counter() < deadline:
+            polls += http(base, "/state")[0] == 200
+            polls += http(base, "/leak")[0] == 200
+        n0, t0 = lp.tick_count, time.perf_counter()
+        time.sleep(WEB_REALTIME_S)
+        n1, t1 = lp.tick_count, time.perf_counter()
+        snap = http(base, "/state")[1]
+    finally:
+        app.stop()
+    n_launch = counts()
+    rate = (n1 - n0) * lp.params.control_dt / (t1 - t0)
+    print(f"[web] realtime, single f64, window 40: {n1 - n0} ticks in "
+          f"{t1 - t0:.2f} s of wall time, sim_s_per_wall_s {rate:.4f}; "
+          f"{polls} polls of /state and /leak answered while the tick "
+          f"thread captured; error {snap['error']}; launches {n_launch}  "
+          f"({card})", flush=True)
+    if lp._mpc_tick.graph is None or n1 <= n0 or snap["error"]:
+        raise SystemExit("[web] the realtime tick thread did not replay")
+    if any(n_launch.values()):
+        raise SystemExit(f"[web] launched a kernel of the repo: {n_launch}")
+    print(f"[web] {time.perf_counter() - t_group:.1f} s for the group  "
+          f"({card})", flush=True)
+
+
+def run_triple_swingup(dev, card):
+    """[triple-swingup]: tests/test_triple.py::TestTrackedSwingUp on the
+    card: the plan's first controls replayed open loop (one plant step
+    captured in a CUDA graph and replayed), then run_closed_loop's catch;
+    its gates, and both states beside the JAX package's. No kernel of the
+    repo lies on this path."""
+    t_group = time.perf_counter()
+    f64 = torch.float64
+    traj = np.load(TRIPLE_TRAJ)
+    K = int(traj["window"])
+    handoff = K - 60
+    u_ref = torch.as_tensor(np.asarray(traj["u"], np.float64)[:handoff],
+                            device=dev)
+    x_plan = np.asarray(traj["solution"])[: (K // 20 + 1) * 8].reshape(
+        -1, 8)[handoff // 20]
+    dp = pt.default_triple_params(f64, dev)
+    up = math.pi / 2
+    hang = torch.tensor([0.0, -up, -up, -up, 0.0, 0.0, 0.0, 0.0], dtype=f64,
+                        device=dev)
+    model = pt.TRIPLE_CARTPOLE
+
+    def plant(x, u):
+        return (pt.simulator_step(dp, x, 0.01, u, model=model),)
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    eager_first = plant(hang, u_ref[0])[0]
+    step = cl.CUDAGraphTick(plant, (hang, u_ref[0]))
+    x = hang
+    for t in range(handoff):
+        x = step(x, u_ref[t])[0]
+        if t == 0:
+            first_same = torch.equal(x, eager_first)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    x_mid = x
+    mpc = pt.make_mpc(pt.OptimizationParams(**TRIPLE_CATCH_KWARGS), model)
+    t0 = time.perf_counter()
+    res = pt.run_closed_loop(mpc, x_mid, dp, TRIPLE_CATCH_TICKS)
+    torch.cuda.synchronize()
+    catch_s = time.perf_counter() - t0
+    n_launch = counts()
+    xm, xf = x_mid.cpu().numpy(), res.final_state.cpu().numpy()
+    codes = res.termination_states.cpu().numpy()
+    g = triple_tracked_gate(xm, x_plan, codes, xf)
+    w = triple_tracked_witness()
+    ticks = w["catch_ticks"]
+    states = res.states.cpu().numpy()
+    d_states = {t: float(np.abs(states[t] - s).max())
+                for t, s in zip(ticks, w["catch_states"]) if t < len(states)}
+    print(f"[triple-swingup] f64: {handoff} planned controls of "
+          f"triple_swingup_traj.npz replayed open loop (a plant step "
+          f"captured in a CUDA graph, its first replay the eager step's "
+          f"bits: {first_same}) in {replay_s:.2f} s, then run_closed_loop "
+          f"(window 60, spacing 5, 8 iterations, soft terminal weights) for "
+          f"{TRIPLE_CATCH_TICKS} ticks in {catch_s:.2f} s, termination codes "
+          f"{np.bincount(codes, minlength=5).tolist()}; gates of "
+          f"tests/test_triple.py: {json.dumps(g)}; launches {n_launch}  "
+          f"({card})", flush=True)
+    print(f"[triple-swingup] beside the JAX package's run "
+          f"(triple_tracked_jax_cpu.json): mid-swing state "
+          f"{np.round(xm, 6).tolist()} against "
+          f"{np.round(w['x_mid'], 6).tolist()}, max |dx| "
+          f"{float(np.abs(xm - w['x_mid']).max()):.3e}; the catch's states, "
+          f"max |dx| by tick {json.dumps(d_states)}; final state "
+          f"{np.round(xf, 6).tolist()} against "
+          f"{np.round(w['final_state'], 6).tolist()}, max |dx| "
+          f"{float(np.abs(xf - w['final_state']).max()):.3e}  ({card})",
+          flush=True)
+    if not g["ok"] or not first_same:
+        raise SystemExit("[triple-swingup] its gates failed")
+    if any(n_launch.values()):
+        raise SystemExit(f"[triple-swingup] launched a kernel of the repo: "
+                         f"{n_launch}")
+    print(f"[triple-swingup] {time.perf_counter() - t_group:.1f} s for the "
+          f"group  ({card})", flush=True)
+
+
+def run_interactive_groups(dev, card):
+    """The [interactive], [web] and [triple-swingup] groups, in this order
+    (``python chip_smoke.py --group interactive``)."""
+    tmp = os.path.join(ROOT, "chiprun_out", "interactive")
+    os.makedirs(tmp, exist_ok=True)
+    run_interactive(dev, card, tmp)
+    run_web(dev, card)
+    run_triple_swingup(dev, card)
+
+
 #: The argument that runs only the [diff] group: ``run`` starts it as a
 #: process of its own beside the double's and triple's phases.
 DIFF_GROUP_ARGS = ["--group", "diff"]
+#: The argument that runs only the [interactive], [web] and
+#: [triple-swingup] groups: ``run`` starts them as a process of their own
+#: beside path 1 and path 2.
+INTERACTIVE_GROUP_ARGS = ["--group", "interactive"]
 
 
 def main(argv=None) -> int:
@@ -1741,6 +2253,9 @@ def main(argv=None) -> int:
     if argv == DIFF_GROUP_ARGS:
         strict_vmap()
         run_diff(dev, _card())
+        return 0
+    if argv == INTERACTIVE_GROUP_ARGS:
+        run_interactive_groups(dev, _card())
         return 0
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
@@ -1754,20 +2269,45 @@ def strict_vmap():
     warnings.filterwarnings("error", message="There is a performance drop")
 
 
-def start_diff_group(log_path):
-    """The [diff] group (``python chip_smoke.py --group diff``) as a process
-    of its own, its output into ``log_path``. It launches no kernel of the
-    repo and, like the multi-link runs beside it, keeps the host busy and
-    the card idle ~90 % of the time (PERF.md §5)."""
+def start_group(group_args, log_path):
+    """A group (``python chip_smoke.py --group ...``) as a process of its
+    own, its output into ``log_path``. The [diff] and [interactive] groups
+    launch no kernel of the repo and, like the runs beside them, keep the
+    host busy and the card idle most of the time (PERF.md §5)."""
     with open(log_path, "w") as log_f:
         return subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__)] + DIFF_GROUP_ARGS,
-            cwd=ROOT, stdout=log_f, stderr=subprocess.STDOUT)
+            [sys.executable, os.path.abspath(__file__)] + group_args,
+            cwd=ROOT, stdout=log_f, stderr=subprocess.STDOUT,
+            start_new_session=True)
+
+
+def join_group(proc, log_path, name, timeout=1200):
+    """Wait for a group's process, print its output and fail if it
+    failed (or outlived ``timeout``)."""
+    rc = proc.wait(timeout=timeout)
+    with open(log_path) as f:
+        print(f.read(), end="", flush=True)
+    if rc != 0:
+        raise SystemExit(f"[{name}] the group's process exited {rc}")
 
 
 def run(dev) -> int:
     """Every phase on ``dev``; raises ``SystemExit`` on the first failed
-    gate."""
+    gate. A group's process still running then is stopped."""
+    children = []
+    try:
+        return run_phases(dev, children)
+    finally:
+        for proc in children:
+            # The group's session: the group and what it started.
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+
+
+def run_phases(dev, children) -> int:
+    """The phases of ``run``; each group's process started goes into
+    ``children``."""
     strict_vmap()
     # ---------------------------------------------------------------- device
     card = _card()
@@ -1863,6 +2403,14 @@ def run(dev) -> int:
                   card)
 
     elapsed("the single's kernel checks")
+
+    # The interactive demo's groups, a process of their own beside path 1
+    # and path 2.
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    interactive_log = os.path.join(out_dir, "interactive_group.log")
+    interactive = start_group(INTERACTIVE_GROUP_ARGS, interactive_log)
+    children.append(interactive)
 
     # ------------------------------------------------------ path 1 (fused)
     # Two calls carrying (plant state, MPCState), as bench.py chains its
@@ -1974,31 +2522,25 @@ def run(dev) -> int:
         raise SystemExit("[cross] path 2 disagrees with path 1")
 
     elapsed("path 2 and cross")
+    join_group(interactive, interactive_log, "interactive")
+    elapsed("the interactive, web and triple-swingup groups (their own "
+            "process, beside path 1 and path 2)")
 
     # ---------------- the double and triple poles, the diff group beside them
-    out_dir = os.path.join(ROOT, "chiprun_out")
     tmp = os.path.join(out_dir, "cli")
     os.makedirs(tmp, exist_ok=True)
     diff_log = os.path.join(out_dir, "diff_group.log")
-    diff = start_diff_group(diff_log)
-    try:
-        checks_d = check_multilink_kernels(pt.DOUBLE_CARTPOLE, dev, card)
-        run_d = run_double(dev, card, checks_d["floor"])
-        elapsed("the double's phases")
-        checks_t = check_multilink_kernels(pt.TRIPLE_CARTPOLE, dev, card)
-        run_t = run_triple(dev, card)
-        elapsed("the triple's phases")
-        diff_rc = diff.wait(timeout=1200)
-    finally:
-        if diff.poll() is None:
-            diff.kill()
-            diff.wait()
-    with open(diff_log) as f:
-        print(f.read(), end="", flush=True)
+    diff = start_group(DIFF_GROUP_ARGS, diff_log)
+    children.append(diff)
+    checks_d = check_multilink_kernels(pt.DOUBLE_CARTPOLE, dev, card)
+    run_d = run_double(dev, card, checks_d["floor"])
+    elapsed("the double's phases")
+    checks_t = check_multilink_kernels(pt.TRIPLE_CARTPOLE, dev, card)
+    run_t = run_triple(dev, card)
+    elapsed("the triple's phases")
+    join_group(diff, diff_log, "diff")
     elapsed("the diff group (its own process, beside the double's and "
             "triple's phases)")
-    if diff_rc != 0:
-        raise SystemExit(f"[diff] the group's process exited {diff_rc}")
     n_cli = run_cli(dev, card, tmp)
     elapsed("the cli group")
     multilink = {pt.DOUBLE_CARTPOLE: (checks_d, run_d),

@@ -155,12 +155,48 @@ def test_sweep_auto_layout(capsys):
 def test_no_cuda_without_cpu_flag_exits(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for argv in (["solve"], ["closed-loop", "--steps", "1"],
-                 ["sweep", "--batch", "2", "--steps", "1"]):
+                 ["sweep", "--batch", "2", "--steps", "1"], ["interactive"],
+                 ["web", "--port", "0"]):
         with pytest.raises(SystemExit) as exc:
             cli.main(argv)
         assert exc.value.code not in (0, None)
         assert "no CUDA device" in str(exc.value.code)
         assert "--cpu" in str(exc.value.code)
+
+
+def test_interactive_scripted_run(capsys, tmp_path, monkeypatch):
+    """Without a tty: 200 ticks, the pole poked before tick 101, the final
+    state printed and (``--log-json``) the solve log written."""
+    monkeypatch.setattr(sys, "stdin", io.StringIO())
+    log = tmp_path / "log.json"
+    fast = json.dumps({"window_length": 10, "state_spacing": 5,
+                       "max_iterations": 1})
+    rc, out = _run(capsys, "interactive", "--cpu", "--params", fast,
+                   "--log-json", str(log))
+    assert rc == 0
+    final = json.loads(out.split("final state: ")[1].split("\n")[0])
+    entries = json.loads(log.read_text())
+    assert len(entries) == 200 and len(final) == 4
+    assert set(entries[0]) == {"initial_state", "previous_solution",
+                               "solver_outputs", "u", "predicted_states"}
+    assert entries[0]["initial_state"]["th_1"] == -math.pi / 2
+    assert all(round(v, 4) == v for v in final)
+
+
+def test_web_serves_the_flags_loop(monkeypatch):
+    """``web`` hands ``serve`` a loop built from the common flags."""
+    got = {}
+    monkeypatch.setattr("cartpole_tpu_torch.web.serve",
+                        lambda host, port, loop: got.update(
+                            host=host, port=port, loop=loop))
+    assert cli.main(["web", "--cpu", "--model", "double", "--set-point",
+                     "0.2", "--port", "0", "--host", "0.0.0.0"]) == 0
+    loop = got["loop"]
+    assert (got["host"], got["port"]) == ("0.0.0.0", 0)
+    assert loop.device.type == "cpu" and loop.dtype == torch.float64
+    assert loop.model is pt.DOUBLE_CARTPOLE and loop.set_point == 0.2
+    assert loop.params.window_length == 60 and not loop.render
+    assert loop.x.tolist() == [0.0, -math.pi / 2, -math.pi / 2, 0, 0, 0]
 
 
 def test_typos_get_the_designed_errors():
@@ -177,5 +213,5 @@ def test_help_as_a_module():
         [sys.executable, "-m", "cartpole_tpu_torch", "--help"],
         capture_output=True, text=True, timeout=120, env=env, cwd=REPO)
     assert res.returncode == 0, res.stderr[-2000:]
-    # The slice's four subcommands; interactive and web are not ported.
-    assert "{solve,closed-loop,sweep,replay}" in res.stdout
+    # The JAX package's six subcommands.
+    assert "{solve,closed-loop,sweep,interactive,web,replay}" in res.stdout

@@ -243,7 +243,8 @@ def test_port_never_reaches_the_jax_package(tmp_path):
                  "viz.py", "parallel/mesh.py", "parallel/sharded.py",
                  "utils/logging.py", "utils/replay.py", "utils/tracing.py",
                  "utils/checkpoint.py", "utils/debug.py",
-                 "utils/roofline.py"):
+                 "utils/roofline.py", "interactive.py", "web/__init__.py",
+                 "web/server.py", "web/page.py"):
         assert need in scanned, need
     found = {os.path.relpath(f, ROOT): r for f in files
              if (r := _jax_refs(f))}

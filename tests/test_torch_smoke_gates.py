@@ -7,6 +7,7 @@ committed ``double_upright_switch_jax_cpu.json``) accept what lies inside their
 bounds and refuse what lies outside.
 """
 
+import json
 import math
 import os
 import sys
@@ -202,3 +203,86 @@ def test_close_gate():
     assert not cs.close_gate([1.0, -2.0 * (1 + 3e-4)], [1.0, -2.0],
                              2e-4)["ok"]
     assert not cs.close_gate([1.0, float("nan")], [1.0, -2.0], 2e-4)["ok"]
+
+
+# ------------------------------- the [interactive] and [triple-swingup] gates
+def _interactive_run(w, spoil=None):
+    """A scripted run's solve log (200 entries) and printed final state
+    that reproduce the witness ``w``; ``spoil`` moves one of them."""
+    entries = [None] * cs.INTERACTIVE_CHECK_TICKS[-1]
+    for n, x, u, code in zip(w["ticks"], w["states"], w["u0"],
+                             w["termination_states"]):
+        entries[n - 1] = {
+            "initial_state": {"b_x": x[0], "th_1": x[1], "b_x_dot": x[2],
+                              "th_1_dot": x[3]},
+            "u": [u, 0.0], "solver_outputs": {"termination_state": code}}
+    printed = list(w["final_state_printed"])
+    entry = entries[w["ticks"][-6] - 1]  # tick 150
+    if spoil == "state":
+        entry["initial_state"]["th_1"] += 2e-5
+    elif spoil == "u":
+        entry["u"][0] -= 2e-4
+    elif spoil == "code":
+        entry["solver_outputs"]["termination_state"] = "MAX_LAMBDA"
+    elif spoil == "printed":
+        printed[1] += 3e-4
+    elif spoil == "short":
+        entries.pop()
+    return entries, printed
+
+
+def test_interactive_witness_is_the_cli_run():
+    w = cs.interactive_witness()
+    assert w["ticks"] == list(range(10, 201, 10))
+    assert set(cs.INTERACTIVE_CHECK_TICKS) <= set(w["ticks"])
+    assert w["ticks"][-6] == 150
+    p = w["params"]
+    assert (p["window_length"], p["state_spacing"], p["max_iterations"]) == \
+        (40, 10, 8)
+    assert p == json.loads(pt.OptimizationParams().to_json())
+    # swung up by tick 100; the poke before tick 101 knocks the pole
+    # 0.3 rad or more off upright over ticks 110-130
+    th = np.array(w["states"])[:, 1] - math.pi / 2
+    assert abs(th[9]) < 0.05 and np.abs(th[10:13]).max() > 0.3
+
+
+@pytest.mark.parametrize("spoil,ok", [
+    (None, True), ("state", False), ("u", False), ("code", False),
+    ("printed", False), ("short", False)])
+def test_interactive_gate(spoil, ok):
+    w = cs.interactive_witness()
+    entries, printed = _interactive_run(w, spoil)
+    assert cs.interactive_gate(entries, printed, w)["ok"] is ok
+
+
+def test_triple_tracked_witness_is_the_reference_test():
+    w = cs.triple_tracked_witness()
+    assert w["replay_ticks"] == 240
+    assert len(w["termination_states"]) == cs.TRIPLE_CATCH_TICKS
+    params = pt.OptimizationParams(**cs.TRIPLE_CATCH_KWARGS)
+    assert w["catch_params"] == json.loads(params.to_json())
+    g = cs.triple_tracked_gate(np.array(w["x_mid"]), np.array(w["x_plan"]),
+                               np.array(w["termination_states"]),
+                               np.array(w["final_state"]))
+    assert g["ok"], g
+
+
+@pytest.mark.parametrize("spoil,check", [
+    ("mid", "mid_swing_on_plan"), ("code", "no_failed_solve"),
+    ("angle", "final_upright"), ("velocity", "final_at_rest")])
+def test_triple_tracked_gate_refuses_each_fault(spoil, check):
+    w = cs.triple_tracked_witness()
+    x_mid, x_plan = np.array(w["x_mid"]), np.array(w["x_plan"])
+    codes, xf = np.array(w["termination_states"]), np.array(w["final_state"])
+    if spoil == "mid":
+        x_mid[6] += 0.6
+    elif spoil == "code":
+        codes[40] = 4
+    elif spoil == "angle":
+        xf[3] += 2e-2
+    else:
+        xf[7] = 0.2
+    g = cs.triple_tracked_gate(x_mid, x_plan, codes, xf)
+    assert not g["ok"] and not g[check]
+    assert sum(not g[k] for k in ("mid_swing_on_plan", "no_failed_solve",
+                                  "final_upright", "final_at_rest")) == 1
