@@ -17,6 +17,7 @@ launched at once.
 
 from __future__ import annotations
 
+import time
 from typing import Any, NamedTuple
 
 import torch
@@ -25,7 +26,7 @@ from .controller import MPC, MPCState
 from .simulator import simulator_step
 
 __all__ = ["ClosedLoopResult", "run_closed_loop", "closed_loop_step",
-           "CUDAGraphTick"]
+           "CUDAGraphTick", "launch_counts"]
 
 
 class ClosedLoopResult(NamedTuple):
@@ -97,6 +98,28 @@ def _warmup_stream() -> torch.cuda.Stream:
     return _WARMUP_STREAMS[dev]
 
 
+def _counted_kernels():
+    """The kernel wrappers whose ``launches`` attribute counts their
+    kernel's launches (imported here: ``ops/fused.py`` imports this
+    package)."""
+    from ..ops.fused import fused_solve
+    from ..ops.pallas_kernels import segment_jac_batch_last
+
+    return fused_solve, segment_jac_batch_last
+
+
+def launch_counts() -> tuple:
+    """Each counted kernel's ``launches``, in :func:`_counted_kernels`'s
+    order."""
+    return tuple(k.launches for k in _counted_kernels())
+
+
+def add_launches(delta, sign: int = 1) -> None:
+    """Add ``sign * delta`` to each counted kernel's ``launches``."""
+    for k, d in zip(_counted_kernels(), delta):
+        k.launches += sign * d
+
+
 class CUDAGraphTick:
     """``fn`` captured once in a CUDA graph on the current stream, and
     replayed for every call: each call copies its arguments into the
@@ -104,27 +127,58 @@ class CUDAGraphTick:
 
     ``fn`` must take and return tensors on the card, read nothing back to
     the host and keep the shapes of ``example_args``. Before the capture
-    ``fn`` runs once eagerly on the device's one warm-up stream, as
-    capture requires, which makes what is made once, such as the problem's
-    statics on the device and the solver libraries' handles; its outputs,
-    those of ``fn`` on ``example_args``, are kept as ``warmup_outputs``.
-    The graph and its memory live as long as this object."""
+    ``fn`` runs once eagerly on ``example_args`` on the device's one
+    warm-up stream, as capture requires, which makes what is made once,
+    such as the problem's statics on the device and the solver libraries'
+    handles; its outputs are kept as ``warmup_outputs`` (an output that is
+    a view of an argument views ``example_args``, not the graph's inputs,
+    which every replay overwrites).
+    A capture that fails raises. The graph and its memory live as long as
+    this object.
+
+    The kernel wrappers count a launch when they enqueue it, which during
+    the capture runs nothing on the device: the counts the capture adds
+    (``launches``) are taken back, and added again at every replay. Also
+    kept: ``capture_s`` and ``instantiate_s``, the host seconds of the
+    capture and of the graph's instantiation, and ``pool_bytes``, the
+    memory the capture reserved for the graph's private pool."""
 
     def __init__(self, fn, example_args):
         self.inputs = tuple(a.clone() for a in example_args)
+        self.warmup_outputs = self._warm_up(fn, example_args)
+        before = launch_counts()
+        self._capture(fn)
+        self.launches = tuple(
+            a - b for a, b in zip(launch_counts(), before))
+        add_launches(self.launches, -1)
+
+    def _warm_up(self, fn, args):
         side = _warmup_stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
-            self.warmup_outputs = fn(*self.inputs)
+            outputs = fn(*args)
         torch.cuda.current_stream().wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
+        return outputs
+
+    def _capture(self, fn):
+        """Sets ``graph``, ``outputs``, ``capture_s``, ``instantiate_s``
+        and ``pool_bytes``."""
+        t0 = time.perf_counter()
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         with torch.cuda.graph(self.graph):
+            reserved = torch.cuda.memory_reserved()
             self.outputs = fn(*self.inputs)
+            self.pool_bytes = torch.cuda.memory_reserved() - reserved
+        t1 = time.perf_counter()
+        self.graph.instantiate()
+        self.capture_s = t1 - t0
+        self.instantiate_s = time.perf_counter() - t1
 
     def __call__(self, *args):
         for dst, src in zip(self.inputs, args):
             dst.copy_(src)
         self.graph.replay()
+        add_launches(self.launches)
         return tuple(o.clone() for o in self.outputs)
 
 

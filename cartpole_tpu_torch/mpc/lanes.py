@@ -38,11 +38,12 @@ from ..ops.lanes import (bmv, rk4_step_lanes, rk4_step_rows, rollout_rows,
                          wrap_angles_lanes, wrap_angles_rows)
 from ..ops.pallas_kernels import segment_jac_batch_last
 from ..ops.solver import NLSConfig, NLSOutputs, NLSTerminationState
-from .closed_loop import ClosedLoopResult
+from .closed_loop import ClosedLoopResult, CUDAGraphTick
 from .controller import MPC, MPCOutputs, MPCState
 from .problem import _mgs_qr, _qr_gram_factor, _tri_r_solve, _tri_rt_solve
 
-__all__ = ["step_lanes", "run_closed_loop_lanes", "simulator_step_lanes"]
+__all__ = ["step_lanes", "run_closed_loop_lanes", "simulator_step_lanes",
+           "tick_fn_lanes"]
 
 
 class _Z(NamedTuple):
@@ -87,6 +88,10 @@ class _LanesStatics:
                                    device=device)
 
         self.inv_w_costs = t(1.0 / self._w_costs)
+        #: The line-search step sizes, made here and not in the tick: a
+        #: tensor from host data cannot be made under a CUDA-graph capture.
+        self.alphas = t([0.5 ** i
+                         for i in range(config.max_line_search_iterations)])
         self.D_vec = t(self._D_diag)
         self.sqrtD = t(np.diag(np.sqrt(self._D_diag)))
 
@@ -467,11 +472,10 @@ def _iterate_xla(problem: _LanesProblem, Z0: _Z, config: NLSConfig):
     penalty ramp, all line-search trials in ONE folded evaluation of the
     tiled problem, acceptance, LM damping, termination and the freeze of
     finished instances. Returns ``(Z, lam, term, first_order, traces)``."""
-    dtype, dev = Z0.u.dtype, Z0.u.device
+    dtype = Z0.u.dtype
     B = problem.B
     n_ls = config.max_line_search_iterations
-    alphas = torch.tensor([0.5 ** i for i in range(n_ls)], dtype=dtype,
-                          device=dev)
+    alphas = problem.statics.alphas
     trials = problem.tiled(n_ls)
     alpha_fold = alphas[:, None].expand(n_ls, B).reshape(n_ls * B)
     eps = torch.finfo(dtype).eps
@@ -744,6 +748,44 @@ def simulator_step_lanes(dynamics_params, x, dt: float, u, f_base=None,
 
 
 # ---------------------------------------------------------------- closed loop
+def tick_fn_lanes(mpc: MPC, dynamics_params, set_point,
+                  auto_reset: bool = True, fused: bool = False):
+    """One tick of :func:`run_closed_loop_lanes` as a function of tensors
+    only, ``(x (sd, B), previous_solution (B, dim), warm (B,)[, dist (2, 2,
+    B)]) -> (x_next (sd, B), previous_solution, warm, x.T, u0, terminal
+    prediction (B, sd), termination codes, constraint violations,
+    iterations)``: the unit the loop repeats and ``CUDAGraphTick``
+    captures. ``set_point`` is ``(B,)``; ``dist[0]`` and ``dist[1]`` are
+    the forces at the base and at the first link mass."""
+
+    def tick(x, previous_solution, warm, dist=None):
+        outputs, st = step_lanes(mpc, MPCState(previous_solution, warm),
+                                 x.T, dynamics_params, set_point,
+                                 fused=fused)
+        u0 = outputs.u[:, 0]  # (B,)
+        if auto_reset:
+            failed = mpc.failure_mask(outputs)
+            st = mpc.reset_where(st, failed)
+            u0 = torch.where(failed, torch.zeros_like(u0), u0)
+        x_next = simulator_step_lanes(
+            dynamics_params, x, mpc.params.control_dt, u0,
+            None if dist is None else dist[0],
+            None if dist is None else dist[1], model=mpc.model,
+        )
+        return (x_next, st.previous_solution, st.warm, x.T, u0,
+                outputs.predicted_states[:, -1, :],
+                outputs.solver.termination_state,
+                outputs.solver.constraint_violation,
+                outputs.solver.n_iterations)
+
+    return tick
+
+
+def _replays(x0) -> bool:
+    """Whether the loop replays a capture of its tick: on the card."""
+    return x0.is_cuda
+
+
 def run_closed_loop_lanes(mpc: MPC, x0, dynamics_params, num_steps: int,
                           set_point=0.0, mpc_state: MPCState | None = None,
                           auto_reset: bool = True, disturbances=None,
@@ -755,7 +797,15 @@ def run_closed_loop_lanes(mpc: MPC, x0, dynamics_params, num_steps: int,
 
     ``disturbances``: optional ``(B, num_steps, 2, 2)`` external plant
     forces (``[:, :, 0]`` at the base, ``[:, :, 1]`` at the first link
-    mass, each ``(fx, fy)``), invisible to the planner, for every model."""
+    mass, each ``(fx, fy)``), invisible to the planner, for every model.
+
+    On the card the first tick runs eagerly and the second is captured in
+    a CUDA graph (``CUDAGraphTick``, whose eager warm-up gives the second
+    tick's outputs); every later tick replays that graph, its carry and
+    its slice of ``disturbances`` copied in: the counterpart of the
+    reference's one compiled ``lax.scan``. The graph and its memory go
+    when the call returns. On the CPU every tick runs eagerly.
+    """
     B, sd = x0.shape
     dtype, device = x0.dtype, x0.device
     if mpc_state is None:
@@ -775,35 +825,30 @@ def run_closed_loop_lanes(mpc: MPC, x0, dynamics_params, num_steps: int,
                 f"{(B, num_steps, 2, 2)}, got {tuple(disturbances.shape)}")
         disturbances = disturbances.permute(1, 2, 3, 0)  # (T, 2, 2, B)
 
-    x, st = x0.T, mpc_state
+    def dist(t):
+        return () if disturbances is None else (disturbances[t],)
+
+    tick = tick_fn_lanes(mpc, dynamics_params, set_point, auto_reset, fused)
+    carry = (x0.T, mpc_state.previous_solution, mpc_state.warm)
+    graph = None
     ticks = []
     for t in range(num_steps):
-        outputs, st2 = step_lanes(mpc, st, x.T, dynamics_params, set_point,
-                                  fused=fused)
-        u0 = outputs.u[:, 0]  # (B,)
-        if auto_reset:
-            failed = mpc.failure_mask(outputs)
-            st2 = mpc.reset_where(st2, failed)
-            u0 = torch.where(failed, torch.zeros_like(u0), u0)
-        dist = disturbances[t] if disturbances is not None else None
-        x_next = simulator_step_lanes(
-            dynamics_params, x, mpc.params.control_dt, u0,
-            None if dist is None else dist[0],
-            None if dist is None else dist[1], model=mpc.model,
-        )
-        ticks.append((
-            x.T, u0, outputs.predicted_states[:, -1, :],
-            outputs.solver.termination_state,
-            outputs.solver.constraint_violation,
-            outputs.solver.n_iterations,
-        ))
-        x, st = x_next, st2
+        args = carry + dist(t)
+        if graph is not None:
+            out = graph(*args)
+        elif t == 1 and _replays(x0):
+            graph = CUDAGraphTick(tick, args)
+            out = graph.warmup_outputs
+        else:
+            out = tick(*args)
+        ticks.append(out[3:])
+        carry = out[:3]
     states, controls, term_pred, term_codes, violations, iters = (
         torch.stack(col, dim=1) for col in zip(*ticks)
     )
     return ClosedLoopResult(
-        final_state=x.T,
-        final_mpc_state=st,
+        final_state=carry[0].T,
+        final_mpc_state=MPCState(carry[1], carry[2]),
         states=states,
         controls=controls,
         terminal_predictions=term_pred,

@@ -20,7 +20,7 @@ guard, ``mpc/schedule.py:55``, compares only that size).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping, Optional, Sequence, Tuple
+from typing import Any, Callable, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -82,6 +82,7 @@ def run_scheduled_closed_loop(
     fused: bool = False,
     auto_reset: bool = True,
     max_ticks_per_program: int = 50,
+    on_chunk: Optional[Callable[[ClosedLoopResult], None]] = None,
 ) -> ClosedLoopResult:
     """Run a closed loop through a schedule of solver-parameter phases.
 
@@ -96,8 +97,13 @@ def run_scheduled_closed_loop(
     ``mpc/closed_loop.py::run_closed_loop``; ``layout="lanes"`` runs a
     batch, ``x0`` ``(B, sd)``, through ``mpc/lanes.py::run_closed_loop_lanes``
     with ``fused`` picking the solve body. The reference's ``use_jit`` has
-    no counterpart: the port runs eagerly, and a chunk is a call, not a
-    compiled program.
+    no counterpart: a chunk is one call, which on the card runs its first
+    tick eagerly and replays a CUDA-graph capture of its tick for the rest
+    (the reference compiles a chunk into one program), and releases the
+    graph when it returns.
+
+    ``on_chunk``, if given, is called with each chunk's result as the
+    chunk's call returns (a caller can read the card's memory there).
     """
     from .lanes import run_closed_loop_lanes
 
@@ -132,6 +138,8 @@ def run_scheduled_closed_loop(
                     phase_mpc, x, dynamics_params, n, set_point,
                     mpc_state=state, auto_reset=auto_reset)
             parts.append(res)
+            if on_chunk is not None:
+                on_chunk(res)
             x, state = res.final_state, res.final_mpc_state
             remaining -= n
     return _concat_results(parts, tick_axis=1 if layout == "lanes" else 0)

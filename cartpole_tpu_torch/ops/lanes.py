@@ -23,6 +23,9 @@ __all__ = [
     "beye",
     "wrap_angles_lanes",
     "rk4_step_lanes",
+    "rk4_step_with_jac_lanes",
+    "segment_rollout_with_jac_lanes",
+    "rollout_lanes",
     "wrap_angles_rows",
     "rk4_step_rows",
     "rollout_rows",
@@ -63,6 +66,71 @@ def rk4_step_lanes(f: Callable, x, u, h):
     k3 = f(x + k2 * (h * 0.5), u)
     k4 = f(x + k3 * h, u)
     return x + (h / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+
+
+def rk4_step_with_jac_lanes(fj: Callable, x, u, h):
+    """One RK4 step with the chain-ruled Jacobians, batch-last.
+
+    ``fj(x, u) -> (x_dot (sd, M), J_x (sd, sd, M), J_u (sd, M))``, for
+    example ``model.dynamics_jac`` on lane-batched inputs. Returns ``(x_next
+    (sd, M), A (sd, sd, M), B (sd, M))``.
+    """
+    sd = x.shape[0]
+    eye = beye(sd, x.dtype, x.device)
+
+    k1, A1, B1 = fj(x, u)
+    k2, A2, B2 = fj(x + k1 * (h * 0.5), u)
+    dk2_dx = bmat(A2, eye + (h * 0.5) * A1)
+    dk2_du = bmv(A2, (h * 0.5) * B1) + B2
+
+    k3, A3, B3 = fj(x + k2 * (h * 0.5), u)
+    dk3_dx = bmat(A3, eye + (h * 0.5) * dk2_dx)
+    dk3_du = bmv(A3, (h * 0.5) * dk2_du) + B3
+
+    k4, A4, B4 = fj(x + k3 * h, u)
+    dk4_dx = bmat(A4, eye + h * dk3_dx)
+    dk4_du = bmv(A4, h * dk3_du) + B4
+
+    x_next = x + (h / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+    A = eye + (h / 6.0) * (A1 + 2.0 * dk2_dx + 2.0 * dk3_dx + dk4_dx)
+    B = (h / 6.0) * (B1 + 2.0 * dk2_du + 2.0 * dk3_du + dk4_du)
+    return x_next, A, B
+
+
+def segment_rollout_with_jac_lanes(fj: Callable, x0, us, h,
+                                   angle_indices: Tuple[int, ...] = ()):
+    """One shooting segment with its Jacobians, batch-last: ``x0`` (sd,
+    M), ``us`` (T, M) -> ``(x_end (sd, M), Jx (sd, sd, M), Ju (sd, T,
+    M))``. The angle wrap has unit derivative, so it touches only the
+    state."""
+    sd = x0.shape[0]
+    x = x0
+    Jx = beye(sd, x0.dtype, x0.device).expand(sd, sd, x0.shape[1])
+    cols = []
+    for k in range(us.shape[0]):
+        x, A, B = rk4_step_with_jac_lanes(fj, x, us[k], h)
+        x = wrap_angles_lanes(x, angle_indices)
+        Jx = bmat(A, Jx)
+        cols = [bmv(A, c) for c in cols]
+        cols.append(B)
+    return x, Jx, torch.stack(cols, dim=1)
+
+
+def rollout_lanes(f: Callable, x0, us, h,
+                  angle_indices: Tuple[int, ...] = (),
+                  stack_states: bool = False):
+    """A control sequence integrated batch-last, without Jacobians: ``x0``
+    (sd, M), ``us`` (T, M). Returns ``x_final`` (sd, M), or ``(x_final, xs
+    (sd, T, M))`` with ``stack_states`` (the state after each control)."""
+    x = x0
+    states = []
+    for k in range(us.shape[0]):
+        x = wrap_angles_lanes(rk4_step_lanes(f, x, us[k], h), angle_indices)
+        if stack_states:
+            states.append(x)
+    if stack_states:
+        return x, torch.stack(states, dim=1)
+    return x
 
 
 def _axpy_rows(x_rows, k_rows, a):

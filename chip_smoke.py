@@ -15,8 +15,12 @@ bench.py's swing-up initial states, seed 0):
 and both paths for the double and the triple pole at the JAX bench's
 multi-link regime (window 60, every terminal objective a soft cost,
 bench.py's perturbed-upright initial states): the double through
-``run_scheduled_closed_loop`` with the bench's transient weight
-(``DOUBLE_SCHEDULE``), the triple through ``run_closed_loop_lanes``.
+``run_scheduled_closed_loop`` with the bench's whole 250-tick schedule
+and its transient weight (``DOUBLE_SCHEDULE``), the triple through
+``run_closed_loop_lanes``. On the card every such closed loop runs its
+first tick eagerly, captures its tick in a CUDA graph and replays it for
+the rest (``mpc/lanes.py``), as the JAX package compiles its loop into one
+scan.
 
 Phases, each fatal on failure: device; build (both kernels for the three
 models in one library, one nvcc per source in parallel; each kernel's
@@ -28,23 +32,35 @@ SPMAX steps per segment, and the cold-start shooting problem); kernel 1
 against its plain version (cold start, and a ragged batch of RAGGED
 instances that leaves the last block part full); path 1; kernel 1 against
 its plain version (warm starts after tick 1 and the last tick); disturbed
-(100 ticks of path 1 with a shove at the pole mass); path 2; kernel 2
+(100 ticks of path 1 with a shove at the pole mass); path 2; bitwise (the
+first ``BITWISE_TICKS`` ticks of path 1, of path 2 and of a short run with
+the shove's force, each against the tick function run eagerly from the
+same inputs: identical bits); kernel 2
 against its plain version on the warm linearization after path 2's last
 tick; cross (path 2 against path 1 on the cold-start problem, and path 2
 under ``torch.set_float32_matmul_precision("high")``); for the double and
 the triple, segment_jac and kernel 1 against their plain versions at the
-regime's width, then double (path 1 through the schedule, its upright
-share tick by tick against the JAX package's, path 2, and cross on the cold
-problem) and triple (path 1 and path 2); timing (both
+regime's width, then double (path 1 through the whole schedule in chunks,
+its upright share at ``UPRIGHT_CHECKPOINTS`` against the JAX package's,
+the card's memory flat over the chunks, path 2, the bitwise gate on both
+paths, and cross on the cold problem) and triple (path 1 and path 2);
+timing (both
 kernels by device time, ``device_ms``: kernel 1 on the warm problem after
 path 1's last tick, kernel 2 on the cold and the warm problem, for every
-model) and a profile of one tick of each single-model path and of the
-double's and triple's path 1 (device-busy share, kernel launches), with
+model), a profile of one eager tick of each single-model path
+(device-busy share, kernel launches), each path's tick and the double's
+and triple's path-1 tick as CUDA-graph replays (the capture's and
+instantiation's seconds, the graph pool's bytes, a replay's median ms
+beside an eager tick's, one replay profiled), with
 both kernels' launch layouts (registers, shared bytes per block, resident
-blocks and warps per SM). Then the per-instance group (``MPC.step``,
-``run_closed_loop``, ``vmap``; no kernel of the repo lies on it): oracle
+blocks and warps per SM). The per-instance group (``MPC.step``,
+``run_closed_loop``, ``vmap``; no kernel of the repo lies on it) runs as
+a process of its own (``--group per-instance``) from the end of the build,
+beside the single's paths, and its output is printed after the triple's
+phases: oracle
 (the ``lu`` closed loop, f64, against the C++ oracle on the host), swing-up
-(the reference's 250-tick test with its gates), schur, vmap (tick 1 of
+(``tools/swingup.py`` at its defaults: the reference's 250-tick test, with
+its gates), schur, vmap (tick 1 of
 ``vmap(MPC.step)`` against path 2 by path, then ``vmap(run_closed_loop)`` at
 the CLI sweep's batch) and their timing (a CUDA-graph replay of a tick and
 an eager tick; a replay profiled once). Then the diff group
@@ -60,12 +76,15 @@ timing; it runs as a process of its own (``--group diff``) beside the
 double's and triple's phases, and its output is printed after them. Then
 the cli group, the entry points as a user starts them
 (``python -m cartpole_tpu_torch``): ``sweep`` at batch 4096 in f32 with
-``--layout lanes-fused`` (kernel 1) and ``lanes`` (kernel 2), the same
+``--layout lanes-fused`` (kernel 1) and ``lanes`` (kernel 2),
+``tools/batch_sweep.py --fused`` (a grid of per-scenario pole masses and
+lengths; kernel 1), the same
 lanes-fused sweep on two ranks of the one card under ``torchrun`` (gloo)
 against one rank, ``closed-loop`` in f64 with ``--log-json`` and its
 ``replay``, ``solve`` as a process of its own, and the sweep's
 ``trace_scope`` span. The interactive demo's groups run as a process of
-their own (``--group interactive``) beside path 1 and path 2, and launch no
+their own (``--group interactive``) from the start, beside the build and
+the single's, double's and triple's paths, and launch no
 kernel of the repo: interactive (``python -m cartpole_tpu_torch
 interactive`` without a tty, a process of its own, against the JAX
 package's run of it, ``interactive_jax_cpu.json``; an ``InteractiveLoop``
@@ -81,7 +100,7 @@ simulated seconds per wall second) and triple-swingup
 CUDA graph, then ``run_closed_loop``'s 150-tick catch, its gates, and
 both states beside the JAX package's, ``triple_tracked_jax_cpu.json``).
 The kernels line counts the launches of path 1 and path 2 and of the
-group's sweeps.
+cli group's sweeps.
 Every kernel launch counter is set to 0 just before a path is driven and
 read just after. Prints the card's name and power limit beside every
 number, one JSON line describing the kernels, and as its last line
@@ -89,7 +108,8 @@ number, one JSON line describing the kernels, and as its last line
 
 Usage: python3 chip_smoke.py   (``--group diff``: only the diff group;
 ``--group interactive``: only the interactive, web and triple-swingup
-groups)
+groups; ``--group per-instance``: only the per-instance group, with the
+kernels built)
 Needs one CUDA device, nvcc (CUDA toolkit) and the repository beside it.
 """
 
@@ -107,12 +127,12 @@ import signal
 import socket
 import subprocess
 import sys
-import threading
 import time
 import warnings
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 from torch.profiler import ProfilerActivity, profile
 
 import cartpole_tpu_torch as pt
@@ -125,8 +145,9 @@ from cartpole_tpu_torch import utils as ptu
 from cartpole_tpu_torch.utils.roofline import bound, count_ops
 
 BATCH, TICKS, TICKS_PATH2, TICKS_DISTURBED = 4096, 250, 150, 100
-#: Single-tick calls whose median is the single's ms/tick.
-MEDIAN_TICKS = 10
+#: Single-tick calls (eager ticks) whose median is the single's eager
+#: ms/tick; one for the double's and triple's.
+MEDIAN_TICKS = 3
 #: A batch that is not a multiple of kernel 1's instances per block, and a
 #: column count that is not one of kernel 2's columns per block.
 RAGGED, RAGGED_COLUMNS = 4093, 32765
@@ -138,16 +159,14 @@ MULTILINK_KWARGS = dict(
     th_dot_final_cost_weight=10.0, b_x_dot_final_cost_weight=10.0,
     u_guess_sinusoid_amplitude=0.0, max_iterations=8, state_spacing=5,
     kkt_method="condensed")
-#: bench.py's double-pole outcome run (``_double_health``) is 250 ticks:
-#: an 8x u-rate weight for the first 50 cold-start ticks, then the base
-#: weights. Its eager glue takes ~2.3-3.2 s a tick on the card's host
-#: (~324k launches; PERF.md), so the smoke shortens the schedule to 15
-#: ticks: 10 of the transient, then 5 of the base weights (50 + 50 before
-#: the [diff] group, 50 + 10 before the [cli] group; PERF.md §4). It runs
-#: in chunks of DOUBLE_CHUNK ticks, so each phase crosses a chunk boundary
-#: and the warm start is carried across chunks and across the switch.
-DOUBLE_SCHEDULE = ((10, {"u_derivative_cost_weight": 0.8}), (5, None))
-DOUBLE_CHUNK = 4
+#: bench.py's double-pole outcome run (``_double_health``), whole: 250
+#: ticks, an 8x u-rate weight for the first 50 cold-start ticks, then the
+#: base weights. It runs in chunks of DOUBLE_CHUNK ticks (40 + 10, then 5 x
+#: 40), so each phase crosses a chunk boundary and the warm start is
+#: carried across chunks and across the switch; each chunk is one call,
+#: which replays one CUDA-graph capture of its tick from its second tick.
+DOUBLE_SCHEDULE = ((50, {"u_derivative_cost_weight": 0.8}), (200, None))
+DOUBLE_CHUNK = 40
 #: The JAX bench's outcome of the 250-tick run (BENCH_r05.json, TPU v5e),
 #: printed beside this run's, and the gate on failed solves: the count of
 #: the JAX package's unscheduled 250-tick run (knockdowns.json
@@ -155,18 +174,21 @@ DOUBLE_CHUNK = 4
 DOUBLE_REFERENCE = dict(fraction_upright=0.9956, n_failed=0)
 DOUBLE_MAX_FAILED = 4
 #: The upright share of the same schedule tick by tick, from the JAX
-#: package's lanes loop on a CPU in f32 over the first states of
-#: make_x0s("double", 4096) (scripts/probe_double_upright_cpu.py
-#: ``--ticks 15 --transient 10``): the port's share at each of
-#: UPRIGHT_CHECKPOINTS (within the transient, at the switch to the base
-#: weights, and at the end) must lie within UPRIGHT_SIGMAS binomial
-#: standard deviations of it.
+#: package's lanes loop on a CPU in f32 over the first 512 states of
+#: make_x0s("double", 4096) (scripts/probe_double_upright_cpu.py, 250
+#: ticks): the port's share at each of UPRIGHT_CHECKPOINTS must lie within
+#: UPRIGHT_SIGMAS binomial standard deviations of it.
 UPRIGHT_WITNESS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                               "double_upright_switch_jax_cpu.json")
-UPRIGHT_CHECKPOINTS, UPRIGHT_SIGMAS = (5, 10, 15), 4.0
-#: The double's path 2 and the triple's paths run 3, 10 and 5 ticks (5, 30
-#: and 10 before the [diff] group; PERF.md §4).
-TICKS_DOUBLE_PATH2, TICKS_TRIPLE, TICKS_TRIPLE_PATH2 = 3, 10, 5
+                               "double_upright_jax_cpu.json")
+UPRIGHT_CHECKPOINTS, UPRIGHT_SIGMAS = (50, 100, 150, 200, 250), 4.0
+#: The double's path 2 and the triple's paths run 10, 30 and 10 ticks
+#: (PERF.md §4).
+TICKS_DOUBLE_PATH2, TICKS_TRIPLE, TICKS_TRIPLE_PATH2 = 10, 30, 10
+#: Ticks of the tick function run eagerly that a closed loop's first ticks
+#: (its replays from the third) must equal bit for bit.
+BITWISE_TICKS = 5
+#: Replays whose median is a replayed tick's ms.
+REPLAY_TICKS = 10
 
 
 def _card() -> str:
@@ -766,14 +788,14 @@ def run_loop(tag, model, mpc, fn, ticks, fused_flag, card):
     return res, secs, n, failed, up
 
 
-def upright_witness():
+def upright_witness(path=UPRIGHT_WITNESS, schedule=DOUBLE_SCHEDULE):
     """The JAX package's upright share of the double's regime, tick by
-    tick (``UPRIGHT_WITNESS``)."""
-    with open(UPRIGHT_WITNESS) as f:
+    tick (``UPRIGHT_WITNESS``); it must have run ``schedule``."""
+    with open(path) as f:
         w = json.load(f)
-    if w["schedule"] != [list(phase) for phase in DOUBLE_SCHEDULE]:
-        raise SystemExit(f"[double] {UPRIGHT_WITNESS} ran another "
-                         f"schedule: {w['schedule']}")
+    if w["schedule"] != [list(phase) for phase in schedule]:
+        raise SystemExit(f"[double] {path} ran another schedule: "
+                         f"{w['schedule']}")
     return w
 
 
@@ -808,15 +830,147 @@ def check_upright_curve(res, model, card):
                          "package's")
 
 
+# ----------------------------------------------------- the graphed loop
+def zero_set_point(x):
+    """The set point ``run_closed_loop_lanes`` makes of its default 0.0."""
+    return torch.broadcast_to(torch.as_tensor(0.0, dtype=x.dtype,
+                                              device=x.device), (x.shape[0],))
+
+
+def eager_ticks(mpc, x0, dp, n, fused_flag, mpc_state=None,
+                disturbances=None):
+    """``n`` ticks of ``mpc/lanes.py::tick_fn_lanes`` run eagerly from
+    ``x0`` (B, sd) and ``mpc_state`` (cold if None), with the slices of
+    ``disturbances`` (B, n, 2, 2) that ``run_closed_loop_lanes`` copies
+    into its graph. Returns the batch-first fields of ``BITWISE_FIELDS``."""
+    if mpc_state is None:
+        mpc_state = cold_state(mpc, x0.shape[0], x0.device)
+    tick = lanes.tick_fn_lanes(mpc, dp, zero_set_point(x0), True,
+                               fused_flag)
+    carry = (x0.T, mpc_state.previous_solution, mpc_state.warm)
+    rows = []
+    for t in range(n):
+        dist = (() if disturbances is None
+                else (disturbances[:, t].permute(1, 2, 0),))
+        out = tick(*carry, *dist)
+        rows.append(out[3:])
+        carry = out[:3]
+    cols = [torch.stack(c, dim=1) for c in zip(*rows)]
+    return dict(states=cols[0], controls=cols[1],
+                termination_states=cols[3], solver_iterations=cols[5])
+
+
+#: What the bit-for-bit gate compares.
+BITWISE_FIELDS = ("states", "controls", "termination_states",
+                  "solver_iterations")
+
+
+def _bits(t):
+    """``t`` as integers of its width, so that NaNs compare by their bits."""
+    if t.is_floating_point():
+        return t.contiguous().view(
+            {8: torch.int64, 4: torch.int32, 2: torch.int16}[
+                t.element_size()])
+    return t
+
+
+def bits_differ(eager, res):
+    """The fields of ``BITWISE_FIELDS`` whose first ticks in ``res`` (a
+    closed loop's result) are not the bits of ``eager`` (``eager_ticks``)."""
+    n = eager["states"].shape[1]
+    return [k for k in BITWISE_FIELDS if not torch.equal(
+        _bits(eager[k]), _bits(getattr(res, k)[:, :n]))]
+
+
+def check_bitwise(tag, eager, res, card):
+    """[bitwise]: a closed loop's first ticks (tick 0 eager, tick 1 its
+    capture's warm-up, the rest replays) against ``eager`` bit for bit."""
+    n = eager["states"].shape[1]
+    bad = bits_differ(eager, res)
+    print(f"[bitwise] {tag}: the first {n} ticks of the closed loop (tick 0 "
+          f"eager, tick 1 the capture's warm-up, ticks 2-{n - 1} replays) "
+          f"against {n} ticks of the tick function run eagerly: "
+          + (f"different bits in {bad}" if bad else
+             f"identical bits in {', '.join(BITWISE_FIELDS)}")
+          + f"  ({card})", flush=True)
+    if bad:
+        raise SystemExit(f"[bitwise] {tag}: the replayed loop departs from "
+                         f"the eager ticks in {bad}")
+
+
+def allocator_blocks():
+    """The caching allocator's allocated blocks on the current device:
+    address -> bytes. A block can be up to ~1 MB larger than the tensor
+    in it (the allocator does not split a free block for a smaller
+    remainder), and ``memory_allocated`` counts the block."""
+    dev = torch.cuda.current_device()
+    blocks = {}
+    for seg in torch.cuda.memory_snapshot():
+        if seg.get("device", dev) != dev:
+            continue
+        addr = seg["address"]
+        for b in seg["blocks"]:
+            if b["state"] == "active_allocated":
+                blocks[addr] = b["size"]
+            addr += b["size"]
+    return blocks
+
+
+def held_bytes(results, blocks=None):
+    """Bytes of the distinct storages that closed-loop results hold: the
+    allocator's block of each (``blocks``, from ``allocator_blocks``), or
+    the storage's own size where it has none."""
+    storages = {}
+    for res in results:
+        for t in pytree.tree_leaves(res):
+            st = t.untyped_storage()
+            storages[st.data_ptr()] = (blocks or {}).get(st.data_ptr(),
+                                                         st.nbytes())
+    return sum(storages.values())
+
+
+def memory_flat(values, ref):
+    """The memory gate over a chunked closed loop: ``values`` are
+    ``memory_allocated`` less the results held after each chunk; the last
+    may not be above the one after chunk ``ref``."""
+    return values[-1] <= values[ref]
+
+
+def time_graphed(tag, mpc, dp, res, fused_flag, eager_ms, card):
+    """[timing] of a replayed lanes tick: ``CUDAGraphTick`` over
+    ``tick_fn_lanes`` at the warm state after ``res``'s last tick, its
+    capture's and its instantiation's seconds and its private pool's
+    bytes, the median ms of ``REPLAY_TICKS`` replays (inputs in, replay,
+    outputs cloned) beside ``eager_ms`` (an eager tick's), and one replay
+    under the profiler. The graph goes when this returns."""
+    x, mst = res.final_state, res.final_mpc_state
+    tick = lanes.tick_fn_lanes(mpc, dp, zero_set_point(x), True, fused_flag)
+    args = (x.T, mst.previous_solution, mst.warm)
+    torch.cuda.synchronize()
+    graph = cl.CUDAGraphTick(tick, args)
+    out = dict(capture_s=graph.capture_s, instantiate_s=graph.instantiate_s,
+               pool_bytes=graph.pool_bytes,
+               replay_ms=float(np.median(tick_ms(lambda: graph(*args),
+                                                 REPLAY_TICKS))),
+               eager_ms=eager_ms,
+               replay_profile=profile_calls(lambda: graph(*args)))
+    print(f"[timing] {tag}, the lanes tick as a CUDA-graph replay (warm "
+          f"state after the run's last tick): {json.dumps(out)}  ({card})",
+          flush=True)
+    return out
+
+
 def run_double(dev, card, floor):
     """[double]: bench.py's double-pole outcome run on path 1 through
-    ``run_scheduled_closed_loop`` (``DOUBLE_SCHEDULE``, shortened), with
-    its upright share tick by tick against the JAX package's; then the
-    first ticks of
-    the same schedule on path 2, and [cross] path 2 against path 1 on the
-    cold problem, against ``floor``: the plain version's agreement with
-    itself on that problem after a one-ulp nudge
-    (``check_multilink_kernels``)."""
+    ``run_scheduled_closed_loop`` (``DOUBLE_SCHEDULE``, whole, in chunks
+    of ``DOUBLE_CHUNK``), with its upright share tick by tick against the
+    JAX package's and the card's memory after each chunk (flat from the
+    second chunk of the base phase, when every controller of the schedule
+    exists, to the last); the first ``TICKS_DOUBLE_PATH2`` ticks of the
+    same schedule on path 2; both runs' first ticks against the eager tick
+    function bit for bit; and [cross] path 2 against path 1 on the cold
+    problem, against ``floor``: the plain version's agreement with itself
+    on that problem after a one-ulp nudge (``check_multilink_kernels``)."""
     model = pt.DOUBLE_CARTPOLE
     mpc = multilink_mpc(model)
     B = BATCH
@@ -824,10 +978,18 @@ def run_double(dev, card, floor):
     x0 = torch.as_tensor(make_x0s("double", B), dtype=torch.float32,
                          device=dev)
     ticks = sum(n for n, _ in DOUBLE_SCHEDULE)
+    parts, mems = [], []
+
+    def on_chunk(part):
+        parts.append(part)
+        torch.cuda.synchronize()
+        mems.append(torch.cuda.memory_allocated()
+                    - held_bytes(parts, allocator_blocks()))
+
     res, secs, n1, failed, up = run_loop(
         "double", model, mpc, lambda: pt.run_scheduled_closed_loop(
             mpc, x0, dp, DOUBLE_SCHEDULE, layout="lanes", fused=True,
-            max_ticks_per_program=DOUBLE_CHUNK),
+            max_ticks_per_program=DOUBLE_CHUNK, on_chunk=on_chunk),
         ticks, True, card)
     print(f"[double] schedule {json.dumps(DOUBLE_SCHEDULE)} in chunks of "
           f"{DOUBLE_CHUNK} ticks: "
@@ -835,14 +997,31 @@ def run_double(dev, card, floor):
           f"{DOUBLE_MAX_FAILED}); the JAX bench's 250-tick run of this "
           f"regime: {json.dumps(DOUBLE_REFERENCE)} (TPU v5e, "
           f"BENCH_r05.json); outcomes, not times  ({card})", flush=True)
+    ref = -(-DOUBLE_SCHEDULE[0][0] // DOUBLE_CHUNK) + 1
+    flat = memory_flat(mems, ref)
+    print(f"[double] memory_allocated less the results held, after each "
+          f"of the {len(mems)} chunks: {mems} B; the last not above chunk "
+          f"{ref + 1}'s: {flat}  ({card})", flush=True)
+    faults = [] if flat else ["the card's memory grew over the chunks"]
     if failed > DOUBLE_MAX_FAILED:
-        raise SystemExit("[double] n_failed out of bounds")
-    check_upright_curve(res, model, card)
+        faults.append("n_failed out of bounds")
+    try:
+        check_upright_curve(res, model, card)
+    except SystemExit as e:
+        faults.append(str(e))
+    if faults:
+        raise SystemExit(f"[double] {'; '.join(faults)}")
+    transient = pt.make_mpc(dataclasses.replace(
+        mpc.params, **DOUBLE_SCHEDULE[0][1]), model)
+    check_bitwise("double, path 1", eager_ticks(
+        transient, x0, dp, BITWISE_TICKS, True), res, card)
     first = ((TICKS_DOUBLE_PATH2, DOUBLE_SCHEDULE[0][1]),)
     res2, secs2, n2, _, _ = run_loop(
         "double", model, mpc, lambda: pt.run_scheduled_closed_loop(
             mpc, x0, dp, first, layout="lanes", fused=False),
         TICKS_DOUBLE_PATH2, False, card)
+    check_bitwise("double, path 2", eager_ticks(
+        transient, x0, dp, BITWISE_TICKS, False), res2, card)
 
     problem32, Z0_32 = setup_problem(mpc, cold_state(mpc, B, dev), x0,
                                      torch.float32)
@@ -879,11 +1058,13 @@ def run_triple(dev, card):
                 n1=n1, res2=res2, secs2=secs2, n2=n2)
 
 
-def time_multilink(model, run, checks, card, median_ticks=3):
+def time_multilink(model, run, checks, card, median_ticks=1):
     """[timing] of one model: kernel 1 per solve on the warm problem after
     path 1's last tick and kernel 2 per launch on the cold problem (device
     time), their bounds on this run's data, their plain versions, the
-    launch layouts, launches per tick and the median path-1 tick. Returns
+    launch layouts, launches per tick, the median eager path-1 tick and
+    the same tick replayed (``time_graphed``, which also profiles the
+    replay: its device operations are the eager tick's launches). Returns
     the two entries of the kernels line."""
     mpc, dp, res = run["mpc"], run["dp"], run["res"]
     cfg, B = mpc.nls_config, BATCH
@@ -899,7 +1080,7 @@ def time_multilink(model, run, checks, card, median_ticks=3):
         ms.append((time.perf_counter() - t0) * 1e3)
         x, mst = r1.final_state, r1.final_mpc_state
     med_tick = float(np.median(ms))
-    prof = profile_ticks(mpc, dp, x, mst, True)
+    time_graphed(f"{model.name}, path 1", mpc, dp, res, True, med_tick, card)
 
     problem_w, Z0_w = lanes._prepare(mpc, res.final_mpc_state,
                                      res.final_state, dp)
@@ -942,8 +1123,7 @@ def time_multilink(model, run, checks, card, median_ticks=3):
           f"{run['n1']['fused_iteration'] / run['ticks']:.0f} kernel-1 "
           f"launch a tick; path 2 {ticks2} ticks in {run['secs2']:.2f} s, "
           f"{run['n2']['segment_jac'] / ticks2:.0f} kernel-2 launches a "
-          f"tick; one warm path-1 tick under torch.profiler: "
-          f"{json.dumps(prof)}  ({card})", flush=True)
+          f"tick  ({card})", flush=True)
     print(f"[timing] {name}: kernel 1 {k1_ms:.3f} ms/solve (device time, "
           f"least {k1_t['warm'][1]:.3f}; warm problem after path 1's last "
           f"tick; bound {k1_bound:.4f} ms by {k1_by}: {k1_bytes} B, "
@@ -1118,13 +1298,13 @@ def time_per_instance(mpc, dp, carry, n=10, eager=False):
     return out
 
 
-def run_per_instance(dev, card, kernels_ready=lambda: None):
+def run_per_instance(dev, card):
     """[per-instance]: [oracle], [swing-up], [schur], [vmap] and their
     [timing]; each phase is fatal on failure. No kernel of the repo lies on
     this path: the counts must stay 0 (the comparison with path 2 in
-    [vmap] launches kernel 2 outside the counted runs, after
-    ``kernels_ready()`` returns)."""
+    [vmap] launches kernel 2 outside the counted runs)."""
     from cartpole_tpu_torch import native
+    from cartpole_tpu_torch.tools import swingup
 
     t_group = time.perf_counter()
 
@@ -1136,11 +1316,11 @@ def run_per_instance(dev, card, kernels_ready=lambda: None):
     x_down = torch.tensor(DOWN, dtype=f64, device=dev)
     dp64 = pt.default_single_params(f64, dev)
 
-    def drive(tag, mpc, x, dp, ticks):
+    def drive(tag, mpc, x, dp, ticks, run=None):
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
-        res = pt.run_closed_loop(mpc, x, dp, ticks)
+        res = (run or (lambda: pt.run_closed_loop(mpc, x, dp, ticks)))()
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         if any(counts().values()):
@@ -1173,7 +1353,12 @@ def run_per_instance(dev, card, kernels_ready=lambda: None):
                             ("schur", "schur", TICKS_SCHUR)):
         mpc = pt.make_mpc(pt.OptimizationParams(
             max_iterations=10, state_spacing=5, kkt_method=kkt))
-        res, secs = drive(tag, mpc, x_down, dp64, ticks)
+        # The swing-up is tools/swingup.py at its defaults, which run this
+        # configuration.
+        tool = (lambda: swingup.main(["--out-dir", os.path.join(
+            ROOT, "chiprun_out", "swingup")])[0]) if tag == "swing-up" \
+            else None
+        res, secs = drive(tag, mpc, x_down, dp64, ticks, tool)
         arrs = {k: getattr(res, k).cpu().numpy() for k in (
             "termination_states", "terminal_predictions", "final_state",
             "constraint_violations", "controls")}
@@ -1185,7 +1370,8 @@ def run_per_instance(dev, card, kernels_ready=lambda: None):
                                    arrs["controls"]), "codes and |u|"
         codes = np.bincount(arrs["termination_states"], minlength=5)
         print(f"[{tag}] {kkt}, f64, {ticks} ticks of run_closed_loop from "
-              f"the hanging pole: {secs:.2f} s, termination codes "
+              f"the hanging pole{' (tools/swingup.py)' if tool else ''}: "
+              f"{secs:.2f} s, termination codes "
               f"{codes.tolist()}; gates of {gates}: {json.dumps(g)}  "
               f"({card})", flush=True)
         if not g["ok"]:
@@ -1198,7 +1384,6 @@ def run_per_instance(dev, card, kernels_ready=lambda: None):
     dp32 = pt.default_single_params(torch.float32, dev)
     x0s = torch.as_tensor(sweep_x0s(VMAP_BATCH), dtype=torch.float32,
                           device=dev)
-    kernels_ready()
     r = vmap_agreement(mpc32, x0s, dp32)
     ok, gate = vmap_agreement_ok(r)
     print(f"[vmap] tick 1, vmap(MPC.step) against path 2 (step_lanes, "
@@ -1611,7 +1796,10 @@ def free_port() -> int:
 
 def run_cli(dev, card, tmp) -> dict:
     """The [cli] group: ``python -m cartpole_tpu_torch`` as a user starts
-    it. Returns each kernel's launches in the group's in-process sweeps."""
+    it, and ``tools/batch_sweep.py``. Returns each kernel's launches in the
+    group's in-process sweeps."""
+    from cartpole_tpu_torch.tools import batch_sweep
+
     t_group = time.perf_counter()
     sweep = ["sweep", "--batch", str(CLI_BATCH), "--f32"]
 
@@ -1652,6 +1840,26 @@ def run_cli(dev, card, tmp) -> dict:
             or n_lanes != dict(fused_iteration=0, segment_jac=want)):
         raise SystemExit("[cli] the lanes sweep failed or did not launch "
                          "kernel 2 once per GN iteration")
+
+    # tools/batch_sweep.py --fused: per-scenario m_1 / l_1 (kernel 1).
+    ckpt = os.path.join(tmp, "batch_sweep.npz")
+    torch.cuda.synchronize()
+    reset_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        s_grid, _ = batch_sweep.main(
+            ["--batch", str(CLI_BATCH), "--steps", str(CLI_TICKS),
+             "--fused", "--checkpoint", ckpt])
+    torch.cuda.synchronize()
+    n_grid = counts()
+    print(f"[cli] tools/batch_sweep.py --fused, {CLI_TICKS} ticks x batch "
+          f"{CLI_BATCH}, f32, a (m_1, l_1) grid: launches {n_grid}, "
+          f"{json.dumps(s_grid)}, checkpoint {os.path.exists(ckpt)}  "
+          f"({card})", flush=True)
+    if (s_grid["n_failed_solves"] != 0 or not os.path.exists(ckpt)
+            or n_grid != dict(fused_iteration=CLI_TICKS, segment_jac=0)):
+        raise SystemExit("[cli] batch_sweep --fused failed or did not "
+                         "launch kernel 1 once per tick")
 
     # The same lanes-fused sweep on two ranks of the one card (torchrun,
     # gloo), each taking half of the same states.
@@ -1743,7 +1951,8 @@ def run_cli(dev, card, tmp) -> dict:
         raise SystemExit("[cli] the trace does not hold the sweep's span")
     print(f"[cli] {time.perf_counter() - t_group:.1f} s for the group  "
           f"({card})", flush=True)
-    return {"fused_iteration": n_fused["fused_iteration"],
+    return {"fused_iteration": (n_fused["fused_iteration"]
+                                + n_grid["fused_iteration"]),
             "segment_jac": n_lanes["segment_jac"]}
 
 
@@ -2240,8 +2449,11 @@ def run_interactive_groups(dev, card):
 DIFF_GROUP_ARGS = ["--group", "diff"]
 #: The argument that runs only the [interactive], [web] and
 #: [triple-swingup] groups: ``run`` starts them as a process of their own
-#: beside path 1 and path 2.
+#: beside the build and the single's, double's and triple's paths.
 INTERACTIVE_GROUP_ARGS = ["--group", "interactive"]
+#: The argument that runs only the [per-instance] group: ``run`` starts it
+#: as a process of its own once the kernels are built.
+PER_INSTANCE_GROUP_ARGS = ["--group", "per-instance"]
 
 
 def main(argv=None) -> int:
@@ -2256,6 +2468,10 @@ def main(argv=None) -> int:
         return 0
     if argv == INTERACTIVE_GROUP_ARGS:
         run_interactive_groups(dev, _card())
+        return 0
+    if argv == PER_INSTANCE_GROUP_ARGS:
+        strict_vmap()
+        run_per_instance(dev, _card())
         return 0
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
@@ -2319,37 +2535,21 @@ def run_phases(dev, children) -> int:
         print(f"[elapsed] {time.perf_counter() - t_start:.1f} s after "
               f"{phases}", flush=True)
 
-    # ------------------------------------------------------ build, in a thread
-    # nvcc builds the kernels while the per-instance group, which needs no
-    # kernel until its [vmap] comparison with path 2, runs beside it.
+    # The interactive demo's groups need no kernel: a process of their own
+    # from the start, beside the build and the single's, double's and
+    # triple's paths.
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    interactive_log = os.path.join(out_dir, "interactive_group.log")
+    interactive = start_group(INTERACTIVE_GROUP_ARGS, interactive_log)
+    children.append(interactive)
+
+    # ----------------------------------------------------------------- build
     t0 = time.perf_counter()
-    built = {}
-
-    def build():
-        try:
-            built["out"] = _build.build_library()
-            built["s"] = time.perf_counter() - t0
-        except BaseException as e:  # noqa: BLE001 - re-raised on join
-            built["error"] = e
-
-    builder = threading.Thread(target=build)
-    builder.start()
-
-    def kernels_ready():
-        builder.join()
-        if "error" in built:
-            raise built["error"]
-
-    try:
-        run_per_instance(dev, card, kernels_ready)
-    finally:
-        builder.join()
-    elapsed("the per-instance group")
-    kernels_ready()
-    path, log = built["out"]
+    path, log = _build.build_library()
+    build_s = time.perf_counter() - t0
     _build.load_library()
-    print(f"[build] {built['s']:.1f} s beside the per-instance group -> "
-          f"{os.path.relpath(path)}; seconds "
+    print(f"[build] {build_s:.1f} s -> {os.path.relpath(path)}; seconds "
           f"per source: {' '.join(re.findall(r'^== (.*)$', log, re.M))}",
           flush=True)
     if not log:
@@ -2357,6 +2557,13 @@ def run_phases(dev, children) -> int:
               flush=True)
     if log:
         build_report(ptxas_entries(log))
+    elapsed("the build")
+
+    # The per-instance group (its [vmap] comparison with path 2 needs the
+    # kernels just built): a process of its own beside the single's paths.
+    per_instance_log = os.path.join(out_dir, "per_instance_group.log")
+    per_instance = start_group(PER_INSTANCE_GROUP_ARGS, per_instance_log)
+    children.append(per_instance)
 
     B = BATCH
     mpc = pt.make_mpc(pt.OptimizationParams(
@@ -2404,14 +2611,6 @@ def run_phases(dev, children) -> int:
 
     elapsed("the single's kernel checks")
 
-    # The interactive demo's groups, a process of their own beside path 1
-    # and path 2.
-    out_dir = os.path.join(ROOT, "chiprun_out")
-    os.makedirs(out_dir, exist_ok=True)
-    interactive_log = os.path.join(out_dir, "interactive_group.log")
-    interactive = start_group(INTERACTIVE_GROUP_ARGS, interactive_log)
-    children.append(interactive)
-
     # ------------------------------------------------------ path 1 (fused)
     # Two calls carrying (plant state, MPCState), as bench.py chains its
     # chunks: the state after tick 1 gives the first warm-start problem.
@@ -2435,6 +2634,10 @@ def run_phases(dev, children) -> int:
         raise SystemExit("path 1 failed: n_failed or fraction_upright")
     if not torch.isfinite(res.controls).all():
         raise SystemExit("path 1 produced non-finite controls")
+
+    check_bitwise("single, path 1", eager_ticks(
+        mpc, res1.final_state, dp, BITWISE_TICKS, True,
+        res1.final_mpc_state), res, card)
 
     # ---------------------------------------- kernel 1, warm-start problems
     r_warm = compare(mpc, res1.final_mpc_state, res1.final_state)
@@ -2468,6 +2671,15 @@ def run_phases(dev, children) -> int:
           f"{up_d:.4f}  ({card})", flush=True)
     if failed_d or not finite_d or shown < 0.99 or up_d < 0.99:
         raise SystemExit("[disturbed] failed")
+    # The same force over ticks 1-3 of a short run: two of them replayed.
+    dist5 = torch.zeros((B, BITWISE_TICKS, 2, 2), device=dev)
+    dist5[:, 1:4, 1, 0] = 4.0
+    check_bitwise("single, path 1, disturbed", eager_ticks(
+        mpc, res.final_state, dp, BITWISE_TICKS, True, res.final_mpc_state,
+        dist5), pt.run_closed_loop_lanes(
+            mpc, res.final_state, dp, BITWISE_TICKS,
+            mpc_state=res.final_mpc_state, disturbances=dist5, fused=True),
+        card)
 
     elapsed("path 1 and the disturbed run")
 
@@ -2492,6 +2704,9 @@ def run_phases(dev, children) -> int:
         raise SystemExit("path 2 failed: n_failed or fraction_upright")
     if not torch.isfinite(res2.controls).all():
         raise SystemExit("path 2 produced non-finite controls")
+
+    check_bitwise("single, path 2", eager_ticks(
+        mpc, x0, dp, BITWISE_TICKS, False), res2, card)
 
     # ------------------------------- kernel 2, the warm linearization
     problem2, Z02 = lanes._prepare(mpc, res2.final_mpc_state,
@@ -2522,9 +2737,6 @@ def run_phases(dev, children) -> int:
         raise SystemExit("[cross] path 2 disagrees with path 1")
 
     elapsed("path 2 and cross")
-    join_group(interactive, interactive_log, "interactive")
-    elapsed("the interactive, web and triple-swingup groups (their own "
-            "process, beside path 1 and path 2)")
 
     # ---------------- the double and triple poles, the diff group beside them
     tmp = os.path.join(out_dir, "cli")
@@ -2538,6 +2750,13 @@ def run_phases(dev, children) -> int:
     checks_t = check_multilink_kernels(pt.TRIPLE_CARTPOLE, dev, card)
     run_t = run_triple(dev, card)
     elapsed("the triple's phases")
+    join_group(per_instance, per_instance_log, "per-instance")
+    elapsed("the per-instance group (its own process, beside the single's "
+            "paths)")
+    join_group(interactive, interactive_log, "interactive")
+    elapsed("the interactive, web and triple-swingup groups (their own "
+            "process, beside the build and the single's, double's and "
+            "triple's paths)")
     join_group(diff, diff_log, "diff")
     elapsed("the diff group (its own process, beside the double's and "
             "triple's phases)")
@@ -2561,6 +2780,8 @@ def run_phases(dev, children) -> int:
 
     med_tick = median_tick(True, res.final_state, res.final_mpc_state)
     med_tick2 = median_tick(False, res2.final_state, res2.final_mpc_state)
+    time_graphed("single, path 1", mpc, dp, res, True, med_tick, card)
+    time_graphed("single, path 2", mpc, dp, res2, False, med_tick2, card)
     for name, flag, r in (("path 1", True, res), ("path 2", False, res2)):
         prof = profile_ticks(mpc, dp, r.final_state, r.final_mpc_state, flag)
         print(f"[profile] {name}, one warm tick under torch.profiler: "

@@ -1,7 +1,7 @@
 """Integration ops and QR-Schur helpers of the PyTorch port against the JAX
 package, in f64 on random inputs made with numpy: ``mod_pi`` (including
-+-pi), the rows-form RK4, rollouts and segment Jacobians, and
-``_qr_gram_factor``, each to 1e-12.
++-pi), the rows-form RK4, rollouts and segment Jacobians, their packed
+batch-last counterparts, and ``_qr_gram_factor``, each to 1e-12.
 """
 
 import math
@@ -226,5 +226,52 @@ def test_segment_rollout_with_jac_scan_matches_reference():
     ref = ref_lanes.segment_rollout_with_jac_scan(
         fj_r, tuple(jnp.asarray(x)), jnp.asarray(us), H, ANGLE)
     for a, b in zip(out, ref):
+        assert tuple(a.shape) == b.shape
+        np.testing.assert_allclose(a.numpy(), _np(b), **TOL)
+
+
+def _packed_jac_fns():
+    dp = default_single_params(torch.float64, device="cpu")
+    dp_r = ref_params(jnp.float64)
+    return (lambda x, u: SINGLE_CARTPOLE.dynamics_jac(dp, x, u),
+            lambda x, u: REF_MODEL.dynamics_jac(dp_r, x, u))
+
+
+def test_rk4_step_with_jac_lanes_matches_reference():
+    fj, fj_r = _packed_jac_fns()
+    x = _rows(18)
+    u = np.random.RandomState(19).uniform(-30.0, 30.0, 32)
+    out = lanes.rk4_step_with_jac_lanes(fj, torch.as_tensor(x),
+                                        torch.as_tensor(u), H)
+    ref = ref_lanes.rk4_step_with_jac_lanes(fj_r, jnp.asarray(x),
+                                            jnp.asarray(u), H)
+    for a, b in zip(out, ref):
+        assert tuple(a.shape) == b.shape
+        np.testing.assert_allclose(a.numpy(), _np(b), **TOL)
+
+
+def test_segment_rollout_with_jac_lanes_matches_reference():
+    fj, fj_r = _packed_jac_fns()
+    x = _rows(20)
+    us = np.random.RandomState(21).uniform(-30.0, 30.0, (3, 32))
+    out = lanes.segment_rollout_with_jac_lanes(
+        fj, torch.as_tensor(x), torch.as_tensor(us), H, ANGLE)
+    ref = ref_lanes.segment_rollout_with_jac_lanes(
+        fj_r, jnp.asarray(x), jnp.asarray(us), H, ANGLE)
+    for a, b in zip(out, ref):
+        assert tuple(a.shape) == b.shape
+        np.testing.assert_allclose(a.numpy(), _np(b), **TOL)
+
+
+@pytest.mark.parametrize("stack", [False, True])
+def test_rollout_lanes_matches_reference(stack):
+    f, f_r = _packed_fns(False)
+    x = _rows(22)
+    us = np.random.RandomState(23).uniform(-30.0, 30.0, (4, 32))
+    out = lanes.rollout_lanes(f, torch.as_tensor(x), torch.as_tensor(us), H,
+                              ANGLE, stack_states=stack)
+    ref = ref_lanes.rollout_lanes(f_r, jnp.asarray(x), jnp.asarray(us), H,
+                                  ANGLE, stack_states=stack)
+    for a, b in zip(out if stack else (out,), ref if stack else (ref,)):
         assert tuple(a.shape) == b.shape
         np.testing.assert_allclose(a.numpy(), _np(b), **TOL)

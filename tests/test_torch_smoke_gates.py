@@ -1,10 +1,12 @@
 """Gates of ``chip_smoke.py`` that need no card, on made-up results.
 
 ``floor_ok`` (a kernel or a path against the plain version's agreement
-with itself after a one-ulp nudge) and ``check_upright_curve`` (the double
+with itself after a one-ulp nudge), ``check_upright_curve`` (the double
 pole's upright share tick by tick against the JAX package's, from the
-committed ``double_upright_switch_jax_cpu.json``) accept what lies inside their
-bounds and refuse what lies outside.
+committed ``double_upright_jax_cpu.json``), the bit-for-bit gate of a
+replayed closed loop against the eager tick function and the memory gate
+over the double's chunks accept what lies inside their bounds and refuse
+what lies outside.
 """
 
 import json
@@ -19,8 +21,8 @@ import pytest
 torch = pytest.importorskip("torch")
 pytest.importorskip("cartpole_tpu_torch")
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))))
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 cs = pytest.importorskip("chip_smoke")
 pt = pytest.importorskip("cartpole_tpu_torch")
 
@@ -45,14 +47,34 @@ def test_floor_ok_keeps_the_strict_bound_below_it():
     assert not cs.floor_ok(dict(identical_fraction=1.0, rel_du=2e-3), tight)
 
 
-def test_upright_witness_matches_the_smoke_schedule():
-    w = cs.upright_witness()
-    ticks = sum(n for n, _ in cs.DOUBLE_SCHEDULE)
+#: The witnesses of the double's upright curve and the schedules they
+#: ran: the smoke's (bench.py's whole 250-tick schedule), and the shortened
+#: 10 + 5 ticks the smoke ran before its tick was a CUDA-graph replay.
+WITNESSES = {
+    "smoke": (cs.UPRIGHT_WITNESS, cs.DOUBLE_SCHEDULE),
+    "switch": (os.path.join(REPO, "double_upright_switch_jax_cpu.json"),
+               ((10, {"u_derivative_cost_weight": 0.8}), (5, None))),
+}
+
+
+@pytest.mark.parametrize("which", sorted(WITNESSES))
+def test_upright_witness_matches_the_smoke_schedule(which):
+    path, schedule = WITNESSES[which]
+    w = cs.upright_witness(path, schedule)
+    ticks = sum(n for n, _ in schedule)
     assert w["ticks"] >= ticks
     assert len(w["upright_by_tick"]) == w["ticks"] + 1
-    assert max(cs.UPRIGHT_CHECKPOINTS) == ticks
+    if which == "smoke":
+        assert max(cs.UPRIGHT_CHECKPOINTS) == ticks
+        assert cs.DOUBLE_SCHEDULE == (
+            (50, {"u_derivative_cost_weight": 0.8}), (200, None))
     assert w["n_failed"] == 0 and w["finite"]
     assert all(0.0 <= p <= 1.0 for p in w["upright_by_tick"])
+
+
+def test_upright_witness_refuses_another_schedule():
+    with pytest.raises(SystemExit, match="another schedule"):
+        cs.upright_witness(*WITNESSES["switch"][:1], cs.DOUBLE_SCHEDULE)
 
 
 def _result(shares, B, sd=6):
@@ -78,6 +100,92 @@ def test_check_upright_curve(shift, ok):
     else:
         with pytest.raises(SystemExit):
             cs.check_upright_curve(res, pt.DOUBLE_CARTPOLE, "cpu")
+
+
+# ------------------------------------------------ the graphed lanes loop
+def _eager(seed=0, B=4, T=5):
+    rng = np.random.RandomState(seed)
+    return dict(
+        states=torch.as_tensor(rng.normal(size=(B, T, 6)), dtype=torch.float32),
+        controls=torch.as_tensor(rng.normal(size=(B, T)), dtype=torch.float32),
+        termination_states=torch.as_tensor(rng.randint(0, 3, (B, T)),
+                                           dtype=torch.int32),
+        solver_iterations=torch.as_tensor(rng.randint(1, 9, (B, T)),
+                                          dtype=torch.int32))
+
+
+def _loop(eager, extra=3):
+    """A closed loop's result whose first ticks are ``eager``'s, and
+    ``extra`` more."""
+    def longer(t):
+        tail = torch.zeros_like(t[:, :1]).expand(
+            (t.shape[0], extra) + tuple(t.shape[2:]))
+        return torch.cat([t, tail], dim=1)
+
+    return types.SimpleNamespace(**{k: longer(v) for k, v in eager.items()})
+
+
+def _nudge(t):
+    """One ulp up in the last entry of a float tensor."""
+    t = t.clone()
+    flat = t.view(-1)
+    flat[-1] = torch.nextafter(flat[-1], torch.tensor(math.inf))
+    return t
+
+
+@pytest.mark.parametrize("spoil,bad", [
+    (None, []),
+    ("states", ["states"]),
+    ("controls", ["controls"]),
+    ("termination_states", ["termination_states"]),
+    ("solver_iterations", ["solver_iterations"]),
+    ("nan", []),
+])
+def test_bitwise_gate(spoil, bad):
+    eager = _eager()
+    res = _loop(eager)
+    if spoil == "nan":
+        # The same NaN in both: equal bits pass.
+        eager["controls"][0, 0] = math.nan
+        res.controls[0, 0] = math.nan
+    elif spoil in ("states", "controls"):
+        setattr(res, spoil, torch.cat([_nudge(getattr(res, spoil)[:, :5]),
+                                       getattr(res, spoil)[:, 5:]], dim=1))
+    elif spoil:
+        getattr(res, spoil)[1, 2] += 1
+    assert cs.bits_differ(eager, res) == bad
+    if bad:
+        with pytest.raises(SystemExit, match="departs"):
+            cs.check_bitwise("made up", eager, res, "cpu")
+    else:
+        cs.check_bitwise("made up", eager, res, "cpu")
+
+
+def test_bitwise_gate_reads_only_the_first_ticks():
+    eager = _eager()
+    res = _loop(eager)
+    res.states[:, 5:] += 1.0
+    assert cs.bits_differ(eager, res) == []
+
+
+@pytest.mark.parametrize("values,ref,ok", [
+    ([100, 120, 130, 130, 130, 130, 130], 3, True),   # flat
+    ([100, 120, 130, 130, 129, 128, 128], 3, True),   # falls
+    ([100, 120, 130, 130, 131, 132, 133], 3, False),  # grows a chunk
+    ([100, 120, 130, 130, 130, 130, 131], 3, False),  # the last is above
+])
+def test_memory_gate(values, ref, ok):
+    assert cs.memory_flat(values, ref) is ok
+
+
+def test_held_bytes_counts_each_storage_once():
+    a = torch.zeros(10, dtype=torch.float32)
+    b = torch.zeros(3, dtype=torch.int64)
+    assert cs.held_bytes([(a, a[2:], b)]) == 40 + 24
+    assert cs.held_bytes([(a,), (a.view(2, 5).T,)]) == 40
+    # The allocator's block of a storage where it has one.
+    blocks = {a.untyped_storage().data_ptr(): 512}
+    assert cs.held_bytes([(a, a[2:], b)], blocks) == 512 + 24
 
 
 # ------------------------------------------------ the per-instance phases
