@@ -7,14 +7,15 @@ an NVIDIA H100, and the reference's per-instance path (``MPC.step``,
 ``solve_nls`` with its ``lu``, ``schur`` and ``condensed`` KKT paths,
 ``run_closed_loop``, the plant ``Simulator``), which batches with
 ``torch.func.vmap``, and differentiable MPC (``make_differentiable_solve``:
-gradients through one solve, a ``torch.autograd.Function``). Users start
+gradients through one solve, a ``torch.autograd.Function``; ``graphed``
+replays a gradient from one CUDA-graph capture on the card). Users start
 it as ``python -m cartpole_tpu_torch`` (``cli.py``: ``solve``,
 ``closed-loop``, ``sweep`` over the scenario-parallel layer ``parallel/``,
 ``replay``), or through the ``pypendulum`` shim. It imports torch and
 numpy, never jax; the JAX package ``cartpole_tpu`` is its reference.
 """
 
-from .diff import make_differentiable_solve
+from .diff import graphed, make_differentiable_solve
 from .models.base import (DOUBLE_CARTPOLE, SINGLE_CARTPOLE, TRIPLE_CARTPOLE,
                           get_model)
 from .models.params import (DoubleCartPoleParams, SingleCartPoleParams,
@@ -34,6 +35,7 @@ __all__ = [
     "OptimizationParams",
     "make_mpc",
     "make_differentiable_solve",
+    "graphed",
     "get_model",
     "SINGLE_CARTPOLE",
     "DOUBLE_CARTPOLE",

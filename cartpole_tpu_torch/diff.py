@@ -56,11 +56,32 @@ import numpy as np
 import torch
 from torch.func import grad, jacrev, vjp, vmap
 
+from .mpc.closed_loop import CUDAGraphTick
 from .mpc.controller import MPCState
 from .ops import solver
 from .ops.solver import full_f32_matmul
 
-__all__ = ["make_differentiable_solve"]
+__all__ = ["make_differentiable_solve", "graphed"]
+
+
+def graphed(fn, example_args):
+    """``fn`` made to be called again and again on tensors of
+    ``example_args``' shapes, as the JAX package runs
+    ``jax.jit(jax.value_and_grad(loss))``: on the card, one CUDA-graph
+    capture of ``fn`` from ``example_args`` (``mpc/closed_loop.py::
+    CUDAGraphTick``), replayed at every call; on the CPU ``fn`` itself, run
+    eagerly. ``fn`` takes tensors and returns a tuple of tensors, such as
+    ``torch.func.grad_and_value(loss)``, reads nothing back to the host
+    and keeps its shapes; what it closes over is part of the graph. A
+    capture that fails raises: there is no eager fall-back on the card."""
+    if _replays(example_args):
+        return CUDAGraphTick(fn, example_args)
+    return fn
+
+
+def _replays(args) -> bool:
+    """Whether :func:`graphed` captures and replays: on the card."""
+    return any(a.is_cuda for a in args)
 
 
 def make_differentiable_solve(mpc, bound_tol: float = 1e-6,
@@ -119,19 +140,45 @@ def make_differentiable_solve(mpc, bound_tol: float = 1e-6,
                    "n_active": torch.sum(active, dtype=torch.int32),
                    "termination_state": outputs.solver.termination_state}
 
-    # Static scatter map: segment s's local variables are (x_s, u_segment_s),
+    # Static scatter maps: segment s's local variables are (x_s, u_segment_s),
     # the only z-coordinates its defect touches nonlinearly; no coordinate
-    # belongs to two segments.
-    sd, k, n_seg = spec.state_dim, spec.spacing, spec.num_states - 1
-    _idx = np.empty((n_seg, sd + k), np.int64)
+    # belongs to two segments, so each segment's block of second derivatives
+    # lands on entries of its own and placing the blocks is a gather from a
+    # static map (position -> flat block entry, or the zero appended last).
+    sd, k, n_seg, nz = (spec.state_dim, spec.spacing, spec.num_states - 1,
+                        spec.dim)
+    m = sd + k
+    n_def = n_seg * sd
+    _idx = np.empty((n_seg, m), np.int64)
     for _s in range(n_seg):
         _idx[_s, :sd] = np.arange(_s * sd, (_s + 1) * sd)
         _idx[_s, sd:] = spec.u_start + np.arange(_s * k, (_s + 1) * k)
-    n_def = n_seg * sd
+    _smu_src = np.full(nz * nz, n_seg * m * m, np.int64)
+    _smu_src[(_idx[:, :, None] * nz + _idx[:, None, :]).ravel()] = np.arange(
+        n_seg * m * m)
+    _w_src = np.full(n_def * nz, n_def * m, np.int64)
+    _w_src[(np.arange(n_def).reshape(n_seg, sd)[:, :, None] * nz
+            + _idx[:, None, :]).ravel()] = np.arange(n_def * m)
+    _maps: dict = {}
+
+    def maps(device):
+        """``(idx, smu_src, w_src)`` on ``device``, made on first use: a
+        copy from the host cannot be captured in a CUDA graph."""
+        if device not in _maps:
+            _maps[device] = tuple(torch.as_tensor(a, device=device)
+                                  for a in (_idx, _smu_src, _w_src))
+        return _maps[device]
+
+    def placed(blocks, src, rows):
+        """The ``(rows, nz)`` matrix holding ``blocks``' entries where
+        ``src`` puts them, zeros elsewhere."""
+        flat = torch.cat([blocks.reshape(-1), torch.zeros(
+            1, dtype=blocks.dtype, device=blocks.device)])
+        return flat[src].reshape(rows, nz)
 
     def bwd_ift(wz, z, x, dp, sp, state):
         dtype, device = z.dtype, z.device
-        nz = spec.dim
+        idx, smu_src, w_src = maps(device)
         u_prev = _u_prev_continuity(state, dtype)
         a_f = _active_mask(z).to(dtype)
 
@@ -184,7 +231,6 @@ def make_differentiable_solve(mpc, bound_tol: float = 1e-6,
         xs, useg = spec._split(z)
         vs = torch.cat([xs[:-1], useg], dim=1)          # (n_seg, sd+k)
         mu_def = mu[:n_def].reshape(n_seg, sd)
-        idx = torch.as_tensor(_idx, device=device)
         d_v = d[idx]                                    # (n_seg, sd+k)
 
         def seg_out(v, dp_):
@@ -195,18 +241,13 @@ def make_differentiable_solve(mpc, bound_tol: float = 1e-6,
 
         Hseg = vmap(jacrev(jacrev(seg_scalar)), in_dims=(0, 0, None))(
             vs, mu_def, dp)                             # (n_seg, sd+k, sd+k)
-        Smu = zeros(nz, nz).index_put(
-            (idx[:, :, None].expand_as(Hseg), idx[:, None, :].expand_as(Hseg)),
-            Hseg, accumulate=True)
+        Smu = placed(Hseg, smu_src, nz)
 
         def seg_w_rows(v, d_s, dp_):
             return jacrev(lambda vv: jacrev(seg_out)(vv, dp_) @ d_s)(v)
 
         Wseg = vmap(seg_w_rows, in_dims=(0, 0, None))(vs, d_v, dp)
-        row_idx = torch.arange(n_def, device=device).reshape(n_seg, sd)
-        W = zeros(n_c, nz).index_put(
-            (row_idx[:, :, None].expand_as(Wseg),
-             idx[:, None, :].expand_as(Wseg)), Wseg, accumulate=True)
+        W = torch.cat([placed(Wseg, w_src, n_def), zeros(n_c - n_def, nz)])
 
         eye = torch.eye(nz, dtype=dtype, device=device)
         D_a = torch.diag(a_f)
@@ -290,8 +331,14 @@ def make_differentiable_solve(mpc, bound_tol: float = 1e-6,
 
     def solve(x_current, dynamics_params, set_point, state):
         def tensor(v):
-            return (v if isinstance(v, torch.Tensor) else torch.as_tensor(
-                v, dtype=x_current.dtype, device=x_current.device))
+            if isinstance(v, torch.Tensor):
+                return v
+            like = dict(dtype=x_current.dtype, device=x_current.device)
+            if isinstance(v, (int, float, np.number)):
+                # A fill on the device, not a copy from the host, which a
+                # CUDA-graph capture forbids.
+                return torch.full((), float(v), **like)
+            return torch.as_tensor(v, **like)
 
         z, active, n_active, term = _Solve.apply(
             x_current, tensor(set_point), state.previous_solution,

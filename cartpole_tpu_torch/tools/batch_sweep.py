@@ -10,11 +10,14 @@ all-reduced health diagnostics and an optional checkpoint of the final
 warm starts (``utils.save_state``). The controller is the example's:
 condensed KKT, spacing 5, 10 GN iterations.
 
-The batch runs in the lanes layout: ``lanes`` (the reference's XLA-lanes
-body; kernel 2 once a GN iteration), or ``lanes-fused`` with ``--fused``
+The batch runs in the example's layouts: ``vmap`` by default
+(``torch.func.vmap`` of the per-instance closed loop, as the example's
+``jax.vmap``; no kernel of the repo), or ``lanes-fused`` with ``--fused``
 (kernel 1 once a tick; f32 only). On the card each closed loop replays a
 CUDA-graph capture of its tick. The example's per-shard ``batch_tile``
-constraint has no counterpart: it sized the TPU kernel's tiles.
+constraint has no counterpart: it sized the TPU kernel's tiles. The
+lanes layout with kernel 2 is the CLI's: ``python -m cartpole_tpu_torch
+sweep --layout lanes``.
 
 Usage, from the repository root:
     python3 -m cartpole_tpu_torch.tools.batch_sweep [--batch 512]
@@ -100,7 +103,7 @@ def main(argv=None):
         **BASE_PARAMS))
     run = make_sharded_closed_loop(
         mpc, mesh, num_steps=args.steps, batched_params=True,
-        layout="lanes-fused" if args.fused else "lanes")
+        layout="lanes-fused" if args.fused else "vmap")
 
     def sync():
         if mesh.device.type == "cuda":

@@ -8,7 +8,10 @@ recovered by gradient descent on the plan-matching loss, with gradients
 through the controller's own solve (``make_differentiable_solve``, the
 ``"ift"`` method). Adam at a learning rate of 5e-3 (``torch.optim.Adam`` in
 place of the example's optax), f64, 120 steps from ``(0.10, 0.25)``; success
-is an absolute error below 5e-3 on both.
+is an absolute error below 5e-3 on both. On the card each step's value and
+gradient are a replay of one CUDA-graph capture of
+``torch.func.grad_and_value(loss)`` (``diff.graphed``), as the example
+runs ``jax.jit(jax.value_and_grad(loss_fn))``; on the CPU they run eagerly.
 
 The problem, loss and fitting loop are functions (``make_mpc_for``,
 ``excitation_states``, ``make_plans``, ``make_loss``, ``fit``), so that a
@@ -30,7 +33,7 @@ import numpy as np
 import torch
 
 from .. import OptimizationParams, default_single_params, make_mpc
-from ..diff import make_differentiable_solve
+from ..diff import graphed, make_differentiable_solve
 
 FIT_FIELDS = ("m_1", "l_1")
 TRUE_VALUES = (0.16, 0.31)
@@ -94,12 +97,22 @@ def make_loss(plans, base, u_data):
 def fit(loss, v0, steps: int, lr: float = LEARNING_RATE, log=None):
     """``steps`` Adam steps on ``loss`` from ``v0``; returns the fitted
     ``v`` and each step's loss (before its update). ``log(i, loss, v)`` is
-    called after every step."""
+    called after every step.
+
+    Each step's gradient and loss are one call of
+    ``torch.func.grad_and_value(loss)``, made ``graphed`` from ``v0``: on
+    the card a replay of one CUDA-graph capture, with ``v`` its only input
+    and everything ``loss`` closes over (the data, the states) its
+    statics, as the JAX example runs
+    ``jax.jit(jax.value_and_grad(loss_fn))``; eager on the CPU. Adam runs
+    eagerly on ``v``, as the example's optax update runs outside its
+    jit."""
     v = v0.detach().clone().requires_grad_(True)
     opt = torch.optim.Adam([v], lr=lr)
+    value_and_grad = graphed(torch.func.grad_and_value(loss), (v.detach(),))
     losses = []
     for i in range(steps):
-        g, val = torch.func.grad_and_value(loss)(v.detach())
+        g, val = value_and_grad(v.detach())
         v.grad = g
         opt.step()
         losses.append(float(val))

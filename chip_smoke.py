@@ -71,14 +71,20 @@ scripts/probe_diff_tpu.py against its f64 finite differences
 package's (``diff_f64_jax_cpu.json``), the f32 ``ift`` under
 ``torch.set_float32_matmul_precision("high")``, the saturated stall of
 tests/test_diff_saturation.py (``unrolled`` against central differences),
-``vmap(grad)`` over the sysid states, the first sysid steps, and their
-timing; it runs as a process of its own (``--group diff``) beside the
-double's and triple's phases, and its output is printed after them. Then
+``vmap(grad)`` over the sysid states; diff-graph: each of these gradients
+(both methods in f32, ``ift`` in f64, the vmap) made ``diff.graphed`` (one
+CUDA-graph capture, replayed), the replay against the eager run on the
+same inputs bit for bit; sysid: the tool's first steps eagerly, then all
+its 120 steps through one capture (``m_1`` and ``l_1`` within 5e-3, the
+first losses the eager fit's bits); and their timing, eager and replayed;
+it runs as a process of its own (``--group diff``) from the end of the
+build, beside the single's, double's and triple's paths, and its output
+is printed after them. Then
 the cli group, the entry points as a user starts them
 (``python -m cartpole_tpu_torch``): ``sweep`` at batch 4096 in f32 with
 ``--layout lanes-fused`` (kernel 1) and ``lanes`` (kernel 2),
 ``tools/batch_sweep.py --fused`` (a grid of per-scenario pole masses and
-lengths; kernel 1), the same
+lengths; kernel 1) and at its defaults (``vmap``, batch 512), the same
 lanes-fused sweep on two ranks of the one card under ``torchrun`` (gloo)
 against one rank, ``closed-loop`` in f64 with ``--log-json`` and its
 ``replay``, ``solve`` as a process of its own, and the sweep's
@@ -107,6 +113,7 @@ number, one JSON line describing the kernels, and as its last line
 ``{"ok": true, "device": {...}}``.
 
 Usage: python3 chip_smoke.py   (``--group diff``: only the diff group;
+``--group diff-profile``: only its profiled eager and replayed gradient;
 ``--group interactive``: only the interactive, web and triple-swingup
 groups; ``--group per-instance``: only the per-instance group, with the
 kernels built)
@@ -129,6 +136,7 @@ import subprocess
 import sys
 import time
 import warnings
+from unittest import mock
 
 import numpy as np
 import torch
@@ -1473,8 +1481,12 @@ DIFF_F64_RTOL, DIFF_F64_ATOL, STALL_RTOL = 2e-4, 1e-7, 1e-3
 STALL_KWARGS = dict(max_iterations=60, window_length=20, state_spacing=5,
                     u_guess_sinusoid_amplitude=0.0, u_limit=31.0)
 STALL_X0 = (0.1, math.pi / 2 + 0.15, -0.05, 0.1)
-#: Adam steps of tools/sysid.py run by the smoke (the tool runs 120).
+#: Adam steps of tools/sysid.py run eagerly by the smoke, whose losses
+#: the graphed fit's first steps must equal bit for bit; the graphed fit
+#: runs the tool's whole 120.
 SYSID_SMOKE_STEPS = 2
+#: Replays timed of each graph of the differentiable solve.
+DIFF_GRAPH_REPS = 10
 #: Samples of each timed call (the median is printed; the unrolled
 #: gradient, 8-15 s, has only the gate's); the gates' own gradients at the
 #: probe point count among them.
@@ -1511,15 +1523,71 @@ def close_gate(g, g_ref, rtol, atol=0.0):
                                                      atol=atol)))
 
 
+def same_bits(a, b):
+    """Whether two tuples of tensors hold identical bits."""
+    return len(a) == len(b) and all(
+        x.shape == y.shape and torch.equal(_bits(x), _bits(y))
+        for x, y in zip(a, b))
+
+
+def graph_stats(g):
+    """A ``CUDAGraphTick``'s capture and instantiation seconds and its
+    pool's bytes."""
+    return dict(capture_s=g.capture_s, instantiate_s=g.instantiate_s,
+                pool_bytes=g.pool_bytes)
+
+
+def diff_probe_mpc():
+    """scripts/probe_diff_tpu.py's controller (the probe point's)."""
+    return pt.make_mpc(pt.OptimizationParams(
+        max_iterations=12, state_spacing=5, kkt_method="condensed"))
+
+
+def probe_grad_fn(mpc, dtype, dev, method):
+    """``((x, m_1) -> (dL/dx, dL/dm_1), its arguments at the probe
+    point)``, ``L = sum(u*^2)``: the gradient a user replays."""
+    dp = pt.default_single_params(dtype, dev)
+    st = mpc.init_state(dtype, dev)
+    solve = pt.make_differentiable_solve(mpc, method=method)
+
+    def loss(x, m1):
+        z = solve(x, dataclasses.replace(dp, m_1=m1), 0.0, st)
+        return torch.sum(z[mpc.spec.u_start:] ** 2)
+
+    return (torch.func.grad(loss, argnums=(0, 1)),
+            (torch.tensor(DIFF_X0, dtype=dtype, device=dev), dp.m_1.clone()))
+
+
+def run_diff_profile(dev, card):
+    """[timing] diff under torch.profiler, a process of its own that the
+    [diff] group starts at its end: one eager f32 ``ift`` gradient at the
+    probe point, then one replay of its CUDA graph. In the [diff] group's
+    process, once its graphs had been made and freed, the profiler hung the
+    next capture or crashed in a profiled replay (PERF.md §7); in a
+    fresh process both run."""
+    fn, args = probe_grad_fn(diff_probe_mpc(), torch.float32, dev, "ift")
+    prof = profile_calls(lambda: fn(*args))
+    print(f"[timing] diff, one ift gradient under torch.profiler: "
+          f"{json.dumps(prof)}  ({card})", flush=True)
+    g = pt.graphed(fn, args)
+    g(*args)
+    prof = profile_calls(lambda: g(*args))
+    print(f"[timing] diff, one replayed ift f32 gradient (diff.graphed) "
+          f"under torch.profiler: {json.dumps(prof)}  ({card})", flush=True)
+
+
 def run_diff(dev, card):
     """[diff]: the differentiable solve (``make_differentiable_solve``,
     both backward methods) and ``tools/sysid.py`` on the card; each phase
     is fatal on failure. No kernel of the repo lies on this path: the
-    counts must stay 0. Every solve here is eager (~16-20 us of host time
-    a launch, PERF.md), so each phase takes its numbers from as few solves
+    counts must stay 0. The gates' solves are eager (~16-20 us of host
+    time a launch, PERF.md), so each takes its numbers from as few solves
     as it can: the diagnostics ride on the gradient's solve, the saturated
     stall's central differences are one vmapped forward, and the timing
-    reuses the gates' gradients as samples."""
+    reuses the gates' gradients as samples. [diff-graph] and [sysid] run
+    the gradients as users run them on the card, replays of one
+    CUDA-graph capture each (``diff.graphed``), and hold them to the eager
+    ones."""
     from cartpole_tpu_torch.tools import sysid
 
     t_group = time.perf_counter()
@@ -1543,8 +1611,7 @@ def run_diff(dev, card):
 
     witness, w64 = diff_witness(), diff_f64_witness()
     fd = witness["fd_f64_cpu"]
-    mpc = pt.make_mpc(pt.OptimizationParams(
-        max_iterations=12, state_spacing=5, kkt_method="condensed"))
+    mpc = diff_probe_mpc()
     u0 = mpc.spec.u_start
 
     def probe_args(dtype):
@@ -1716,27 +1783,120 @@ def run_diff(dev, card):
                          "unbatched ones")
     phase_done("vmap")
 
+    # ----------------------------------------------------------- diff-graph
+    # Each gradient as users run it on the card (diff.graphed: one
+    # CUDA-graph capture, replayed), against the eager run of the same
+    # function on the same inputs, the capture's warm-up.
+    def vmap_fn(xs_):
+        return (torch.func.vmap(torch.func.grad(plan_loss))(xs_),)
+
+    def forward_fn(dtype):
+        """``x -> (z,)``, the probe point's solve without a gradient."""
+        _, dp, st = probe_args(dtype)
+        solve = pt.make_differentiable_solve(mpc)
+
+        def fwd(x):
+            with torch.no_grad():
+                return (solve(x, dp, 0.0, st),)
+
+        return fwd
+
+    replayed = {}
+    for tag, (fn, args) in (
+            ("forward f32", (forward_fn(f32), probe_args(f32)[:1])),
+            ("ift f32", probe_grad_fn(mpc, f32, dev, "ift")),
+            ("unrolled f32", probe_grad_fn(mpc, f32, dev, "unrolled")),
+            ("ift f64", probe_grad_fn(mpc, f64, dev, "ift")),
+            ("vmap ift f64", (vmap_fn, (xs,)))):
+        g, build_s = counted("diff-graph", lambda: pt.graphed(fn, args))
+        out, replay_s = counted("diff-graph", lambda: g(*args))
+        same = same_bits(out, g.warmup_outputs)
+        also = ""
+        if tag in ("ift f32", "unrolled f32"):
+            gx, gm = f32_grads[tag.split()[0]]
+            same_eager = bool(np.array_equal(out[0].cpu().numpy(), gx)
+                              and float(out[1]) == gm)
+            also = (f"; the [diff] phase's eager gradient's bits "
+                    f"(.backward() for unrolled): {same_eager}")
+        ms = tick_ms(lambda: g(*args), DIFF_GRAPH_REPS)
+        replayed[tag] = dict(median_ms=float(np.median(ms)),
+                             least_ms=min(ms), **graph_stats(g))
+        print(f"[diff-graph] {tag}: the replay against the eager run on the "
+              f"same inputs (the capture's warm-up): identical bits "
+              f"{same}{also}; {json.dumps(graph_stats(g))}, {build_s:.2f} "
+              f"s to build (warm-up, capture, instantiation), the first "
+              f"replay {replay_s * 1e3:.1f} ms, then median "
+              f"{replayed[tag]['median_ms']:.1f} ms of {DIFF_GRAPH_REPS}  "
+              f"({card})", flush=True)
+        if not same:
+            raise SystemExit(f"[diff-graph] the replayed {tag} departs "
+                             f"from the eager run")
+        del g, out
+    phase_done("diff-graph")
+
     # ---------------------------------------------------------------- sysid
     base = pt.default_single_params(f64, dev)
     plans = sysid.make_plans(mpc_id, xs)
+    v0 = torch.tensor(sysid.INITIAL_VALUES, dtype=f64, device=dev)
 
-    def sysid_run():
+    def sysid_loss():
         with torch.no_grad():
             u_data = plans(sysid.with_fit(base, torch.tensor(
                 sysid.TRUE_VALUES, dtype=f64, device=dev)))
-        loss = sysid.make_loss(plans, base, u_data)
-        return sysid.fit(loss, torch.tensor(sysid.INITIAL_VALUES, dtype=f64,
-                                            device=dev), SYSID_SMOKE_STEPS)
+        return sysid.make_loss(plans, base, u_data)
 
-    (v, losses), secs = counted("sysid", sysid_run)
-    ok = bool(np.isfinite(losses).all() and losses[-1] < losses[0]
+    def eager_fit():
+        # The tool's loop with its gradient run eagerly, as on the CPU.
+        with mock.patch.object(sysid, "graphed", lambda fn, args: fn):
+            return sysid.fit(sysid_loss(), v0, SYSID_SMOKE_STEPS)
+
+    (v, losses_eager), secs = counted("sysid", eager_fit)
+    ok = bool(np.isfinite(losses_eager).all()
+              and losses_eager[-1] < losses_eager[0]
               and torch.isfinite(v).all())
     print(f"[sysid] tools/sysid.py, its first {SYSID_SMOKE_STEPS} Adam "
-          f"steps (8 states, window 20, f64): losses {losses}, m_1, l_1 "
-          f"{v.cpu().tolist()} (true {list(sysid.TRUE_VALUES)}); {secs:.2f} "
-          f"s with the data's solve  ({card})", flush=True)
+          f"steps eagerly (8 states, window 20, f64): losses "
+          f"{losses_eager}, m_1, l_1 {v.cpu().tolist()} (true "
+          f"{list(sysid.TRUE_VALUES)}); {secs:.2f} s with the data's solve  "
+          f"({card})", flush=True)
     if not ok:
         raise SystemExit("[sysid] the loss is not finite or did not fall")
+
+    made, stamps = [], []
+
+    def graphed_spy(fn, args):
+        made.append(pt.graphed(fn, args))
+        return made[-1]
+
+    def graphed_fit():
+        loss = sysid_loss()
+        with mock.patch.object(sysid, "graphed", graphed_spy):
+            return sysid.fit(loss, v0, sysid.STEPS, log=lambda *_: (
+                stamps.append(time.perf_counter())))
+
+    (v, losses), secs = counted("sysid", graphed_fit)
+    err = np.abs(v.cpu().numpy() - np.array(sysid.TRUE_VALUES))
+    step_ms = np.diff(stamps) * 1e3
+    first = losses[:SYSID_SMOKE_STEPS] == losses_eager
+    ok = bool(len(made) == 1 and np.isfinite(losses).all()
+              and losses[-1] < losses[0] and err.max() < sysid.TOLERANCE
+              and first)
+    print(f"[sysid] tools/sysid.py, all {sysid.STEPS} Adam steps through one "
+          f"CUDA-graph capture of grad_and_value(loss) (8 states, window 20, "
+          f"f64): {len(made)} capture(s), "
+          f"{json.dumps(graph_stats(made[0]))}; recovered m_1, l_1 "
+          f"{v.cpu().tolist()}, abs err {err.tolist()} (gate < "
+          f"{sysid.TOLERANCE:g}); loss {losses[0]!r} -> {losses[-1]!r}, "
+          f"every step's finite {bool(np.isfinite(losses).all())}; the first "
+          f"{SYSID_SMOKE_STEPS} losses the eager fit's bits: {first}; "
+          f"{secs:.2f} s for the fit with the data's solve, the capture and "
+          f"its warm-up; a step (replay, Adam) median "
+          f"{float(np.median(step_ms)):.1f} ms of {len(step_ms)}, least "
+          f"{float(step_ms.min()):.1f}  ({card})", flush=True)
+    if not ok:
+        raise SystemExit("[sysid] the graphed fit did not recover m_1 and "
+                         "l_1, or departs from the eager fit")
+    del made[:]
     phase_done("sysid")
 
     # --------------------------------------------------------------- timing
@@ -1752,7 +1912,6 @@ def run_diff(dev, card):
         key = f"gradient {method}"
         samples[key] += tick_ms(lambda: probe_grad(f32, method),
                                 n - len(samples[key]))
-    prof = profile_calls(lambda: probe_grad(f32, "ift"))
     med = {k: float(np.median(v)) for k, v in samples.items()}
     for k in ("forward", "gradient ift", "gradient unrolled"):
         back = (f"; backward {med[k] - med['forward']:.1f} ms (the gradient "
@@ -1760,9 +1919,30 @@ def run_diff(dev, card):
         print(f"[timing] diff, {k}, single f32 at the probe point: median "
               f"{med[k]:.1f} ms of {[round(t, 1) for t in samples[k]]}"
               f"{back}  ({card})", flush=True)
-    print(f"[timing] diff, one ift gradient under torch.profiler: "
-          f"{json.dumps(prof)}; the vmap gradient over {len(xs)} states, "
-          f"f64: {vmap_s * 1e3:.1f} ms  ({card})", flush=True)
+    print(f"[timing] diff, the vmap gradient over {len(xs)} states, f64: "
+          f"{vmap_s * 1e3:.1f} ms  ({card})", flush=True)
+
+    # The same calls replayed ([diff-graph]), beside the eager ones.
+    eager = {"forward f32": med["forward"], "ift f32": med["gradient ift"],
+             "unrolled f32": med["gradient unrolled"],
+             "vmap ift f64": vmap_s * 1e3}
+    for tag, r in replayed.items():
+        beside = (f", eager {eager[tag]:.1f} ms (above)" if tag in eager
+                  else "")
+        print(f"[timing] diff, {tag} replayed (diff.graphed): median "
+              f"{r['median_ms']:.1f} ms of {DIFF_GRAPH_REPS}, least "
+              f"{r['least_ms']:.1f}{beside}; capture {r['capture_s']:.2f} "
+              f"s, instantiation {r['instantiate_s']:.2f} s, pool "
+              f"{r['pool_bytes']} B  ({card})", flush=True)
+    # Under the profiler: a process of its own (run_diff_profile).
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__)] + DIFF_PROFILE_GROUP_ARGS,
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, timeout=600)
+    print(proc.stdout.rstrip(), flush=True)
+    if proc.returncode != 0:
+        raise SystemExit(f"[timing] diff: the profile's process exited "
+                         f"{proc.returncode}")
     print(f"[diff] {time.perf_counter() - t_group:.1f} s for the group  "
           f"({card})", flush=True)
 
@@ -1771,6 +1951,8 @@ def run_diff(dev, card):
 #: kernel 2's ticks, and the per-instance closed loop that is logged and
 #: replayed.
 CLI_BATCH, CLI_TICKS, CLI_TICKS_LANES, CLI_TICKS_LOOP = 4096, 20, 3, 50
+#: tools/batch_sweep.py's default batch, run in its default layout (vmap).
+CLI_BATCH_VMAP = 512
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -1860,6 +2042,25 @@ def run_cli(dev, card, tmp) -> dict:
             or n_grid != dict(fused_iteration=CLI_TICKS, segment_jac=0)):
         raise SystemExit("[cli] batch_sweep --fused failed or did not "
                          "launch kernel 1 once per tick")
+
+    # tools/batch_sweep.py at its defaults: the example's vmap layout, no
+    # kernel of the repo.
+    torch.cuda.synchronize()
+    reset_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        s_vmap, _ = batch_sweep.main(["--batch", str(CLI_BATCH_VMAP),
+                                      "--steps", str(CLI_TICKS)])
+    torch.cuda.synchronize()
+    n_vmap = counts()
+    print(f"[cli] tools/batch_sweep.py (the default layout, vmap), "
+          f"{CLI_TICKS} ticks x batch {CLI_BATCH_VMAP}, f32, a (m_1, l_1) "
+          f"grid: launches {n_vmap}, {json.dumps(s_vmap)}  ({card})",
+          flush=True)
+    if (s_vmap["n_failed_solves"] != 0
+            or n_vmap != dict(fused_iteration=0, segment_jac=0)):
+        raise SystemExit("[cli] batch_sweep's default vmap run failed or "
+                         "launched a kernel of the repo")
 
     # The same lanes-fused sweep on two ranks of the one card (torchrun,
     # gloo), each taking half of the same states.
@@ -2445,8 +2646,11 @@ def run_interactive_groups(dev, card):
 
 
 #: The argument that runs only the [diff] group: ``run`` starts it as a
-#: process of its own beside the double's and triple's phases.
+#: process of its own from the end of the build.
 DIFF_GROUP_ARGS = ["--group", "diff"]
+#: The argument that runs only the [diff] group's profile: the group starts
+#: it as a process of its own at its end (``run_diff_profile``).
+DIFF_PROFILE_GROUP_ARGS = ["--group", "diff-profile"]
 #: The argument that runs only the [interactive], [web] and
 #: [triple-swingup] groups: ``run`` starts them as a process of their own
 #: beside the build and the single's, double's and triple's paths.
@@ -2465,6 +2669,10 @@ def main(argv=None) -> int:
     if argv == DIFF_GROUP_ARGS:
         strict_vmap()
         run_diff(dev, _card())
+        return 0
+    if argv == DIFF_PROFILE_GROUP_ARGS:
+        strict_vmap()
+        run_diff_profile(dev, _card())
         return 0
     if argv == INTERACTIVE_GROUP_ARGS:
         run_interactive_groups(dev, _card())
@@ -2564,6 +2772,12 @@ def run_phases(dev, children) -> int:
     per_instance_log = os.path.join(out_dir, "per_instance_group.log")
     per_instance = start_group(PER_INSTANCE_GROUP_ARGS, per_instance_log)
     children.append(per_instance)
+    # The diff group (no kernel of the repo) from here too: with its
+    # replayed gradients and the 120 sysid steps it takes ~500 s, which
+    # started after the single's paths would outlast the triple's phases.
+    diff_log = os.path.join(out_dir, "diff_group.log")
+    diff = start_group(DIFF_GROUP_ARGS, diff_log)
+    children.append(diff)
 
     B = BATCH
     mpc = pt.make_mpc(pt.OptimizationParams(
@@ -2738,12 +2952,9 @@ def run_phases(dev, children) -> int:
 
     elapsed("path 2 and cross")
 
-    # ---------------- the double and triple poles, the diff group beside them
+    # ---------------- the double and triple poles, the groups beside them
     tmp = os.path.join(out_dir, "cli")
     os.makedirs(tmp, exist_ok=True)
-    diff_log = os.path.join(out_dir, "diff_group.log")
-    diff = start_group(DIFF_GROUP_ARGS, diff_log)
-    children.append(diff)
     checks_d = check_multilink_kernels(pt.DOUBLE_CARTPOLE, dev, card)
     run_d = run_double(dev, card, checks_d["floor"])
     elapsed("the double's phases")
@@ -2758,8 +2969,8 @@ def run_phases(dev, children) -> int:
             "process, beside the build and the single's, double's and "
             "triple's paths)")
     join_group(diff, diff_log, "diff")
-    elapsed("the diff group (its own process, beside the double's and "
-            "triple's phases)")
+    elapsed("the diff group (its own process, beside the single's, "
+            "double's and triple's paths)")
     n_cli = run_cli(dev, card, tmp)
     elapsed("the cli group")
     multilink = {pt.DOUBLE_CARTPOLE: (checks_d, run_d),

@@ -29,10 +29,13 @@ The JAX package's programs run in fresh interpreters (this file run as a
 script, one process per group, started together when the module's first
 test asks): its large second-order programs can corrupt XLA:CPU's heap in a
 process that has already run others (``tests/test_diff_saturation.py``'s
-docstring), and a pytest worker runs many files.
+docstring), and a pytest worker runs many files. The sysid group's results
+serve ``tests/test_torch_diff_graph.py`` too: :class:`SharedReference`
+runs its interpreter once per test run, whichever file asks first.
 """
 
 import dataclasses
+import fcntl
 import json
 import math
 import os
@@ -106,8 +109,9 @@ def _reference(group):
             return jnp.mean((plans(dataclasses.replace(
                 dp, m_1=v[0], l_1=v[1])) - u_data) ** 2)
 
-        return {"grad": np.asarray(jax.jit(jax.grad(sysid_loss))(
-            jnp.asarray([0.10, 0.25]))).tolist()}
+        value, g = jax.jit(jax.value_and_grad(sysid_loss))(
+            jnp.asarray([0.10, 0.25]))
+        return {"grad": np.asarray(g).tolist(), "value": float(value)}
 
     mpc = mpc_of(STALL if group == "stall" else SMALL)
     spec, state = mpc.spec, cold(mpc)
@@ -134,10 +138,8 @@ def _sysid_states():
     return excitation_states()[:SYSID_STATES]
 
 
-@pytest.fixture(scope="module")
-def reference():
-    """``reference(group)``: the JAX package's results of ``group``; all
-    groups' interpreters start when the fixture is first used."""
+def _start(group):
+    """``group``'s interpreter, started."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     # One thread each: the programs are compile-bound, and the pytest
     # workers share the cores.
@@ -147,24 +149,90 @@ def reference():
                    "intra_op_parallelism_threads=1"),
                PYTHONPATH=os.pathsep.join(
                    [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
-    procs = {g: subprocess.Popen([sys.executable, __file__, g], env=env,
-                                 stdout=subprocess.PIPE,
-                                 stderr=subprocess.PIPE, text=True)
-             for g in GROUPS}
+    return subprocess.Popen([sys.executable, __file__, group], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def _results(proc):
+    """What a started interpreter printed last, parsed."""
+    out, err = proc.communicate(timeout=600)
+    assert proc.returncode == 0, err[-3000:]
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def _stop(proc):
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
+class SharedReference:
+    """``group``'s results, computed once per test run for every test file
+    and pytest worker that asks. They go to a file in the run's temporary
+    directory (under xdist, the workers' common parent), written under an
+    exclusive lock: the first to ask takes the lock, starts the group's
+    interpreter at once and holds the lock until it has written the file; a
+    later one waits on the lock and reads the file, or runs the group
+    itself if the first one failed."""
+
+    def __init__(self, group, tmp_path_factory):
+        root = tmp_path_factory.getbasetemp()
+        if os.environ.get("PYTEST_XDIST_WORKER"):
+            root = root.parent
+        self.group, self.proc = group, None
+        self.path = root / f"torch_diff_reference_{group}.json"
+        self.lock = open(root / f"torch_diff_reference_{group}.lock", "a")
+        try:
+            fcntl.flock(self.lock, fcntl.LOCK_EX | fcntl.LOCK_NB)
+        except BlockingIOError:
+            return  # another worker is running it
+        if self.path.exists():
+            fcntl.flock(self.lock, fcntl.LOCK_UN)
+        else:
+            self.proc = _start(group)
+
+    def get(self):
+        if self.proc is None:
+            fcntl.flock(self.lock, fcntl.LOCK_EX)
+            if self.path.exists():
+                fcntl.flock(self.lock, fcntl.LOCK_UN)
+                return json.loads(self.path.read_text())
+            self.proc = _start(self.group)
+        try:
+            result = _results(self.proc)
+            part = self.path.with_suffix(".part")
+            part.write_text(json.dumps(result))
+            part.replace(self.path)
+            return result
+        finally:
+            self.proc = None
+            fcntl.flock(self.lock, fcntl.LOCK_UN)
+
+    def close(self):
+        _stop(self.proc)
+        self.lock.close()
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    """``reference(group)``: the JAX package's results of ``group``; all
+    groups' interpreters start when the fixture is first used (the sysid
+    group's unless another file has started it)."""
+    procs = {g: _start(g) for g in GROUPS if g != "sysid"}
+    sysid_ref = SharedReference("sysid", tmp_path_factory)
     results = {}
 
     def get(group):
         if group not in results:
-            out, err = procs[group].communicate(timeout=600)
-            assert procs[group].returncode == 0, err[-3000:]
-            results[group] = json.loads(out.strip().splitlines()[-1])
+            results[group] = (sysid_ref.get() if group == "sysid"
+                              else _results(procs[group]))
         return results[group]
 
     yield get
     for proc in procs.values():
-        if proc.poll() is None:
-            proc.kill()
-            proc.communicate()
+        _stop(proc)
+    sysid_ref.close()
 
 
 # ---------------------------------------------------------- the port's side

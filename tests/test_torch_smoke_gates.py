@@ -4,9 +4,10 @@
 with itself after a one-ulp nudge), ``check_upright_curve`` (the double
 pole's upright share tick by tick against the JAX package's, from the
 committed ``double_upright_jax_cpu.json``), the bit-for-bit gate of a
-replayed closed loop against the eager tick function and the memory gate
-over the double's chunks accept what lies inside their bounds and refuse
-what lies outside.
+replayed closed loop against the eager tick function, the memory gate
+over the double's chunks and the bit-for-bit gate of a replayed gradient
+against the eager one (``same_bits``) accept what lies inside their bounds
+and refuse what lies outside.
 """
 
 import json
@@ -311,6 +312,33 @@ def test_close_gate():
     assert not cs.close_gate([1.0, -2.0 * (1 + 3e-4)], [1.0, -2.0],
                              2e-4)["ok"]
     assert not cs.close_gate([1.0, float("nan")], [1.0, -2.0], 2e-4)["ok"]
+
+
+@pytest.mark.parametrize("spoil,same", [
+    (None, True),
+    ("ulp", False),          # one ulp off in one entry
+    ("signed_zero", False),  # -0.0 for 0.0: equal values, other bits
+    ("nan", True),           # the same NaN in both
+    ("shape", False),        # the same values, another shape
+    ("length", False),       # an output missing
+])
+def test_diff_graph_bitwise_gate(spoil, same):
+    """``[diff-graph]``'s gate: a replayed gradient against the eager one
+    on the same inputs, (dL/dx, dL/dm_1) in f32."""
+    eager = (torch.tensor([441358.125, -205408.78125, 0.0, -25362.283]),
+             torch.tensor(-4412.3057))
+    replay = tuple(t.clone() for t in eager)
+    if spoil == "ulp":
+        replay[0][1] = torch.nextafter(replay[0][1], torch.tensor(0.0))
+    elif spoil == "signed_zero":
+        replay[0][2] = -0.0
+    elif spoil == "nan":
+        eager[0][3] = replay[0][3] = float("nan")
+    elif spoil == "shape":
+        replay = (replay[0].reshape(2, 2), replay[1])
+    elif spoil == "length":
+        replay = replay[:1]
+    assert cs.same_bits(replay, eager) is same
 
 
 # ------------------------------- the [interactive] and [triple-swingup] gates

@@ -3,8 +3,9 @@
 the CPU at a tiny size.
 
 ``tools/swingup.py`` writes its solve log (which loads) and its plots;
-``tools/batch_sweep.py`` prints the JAX example's keys on both lanes
-layouts, which agree, and its checkpoint restores the final warm starts.
+``tools/batch_sweep.py`` prints the JAX example's keys on both of the
+example's layouts (``vmap`` by default, ``lanes-fused`` with ``--fused``),
+which agree, and its checkpoint restores the final warm starts.
 Without ``--device cpu`` on a machine with no card both exit with a
 message.
 """
@@ -49,8 +50,8 @@ def test_swingup_writes_its_files(tmp_path, capsys, monkeypatch):
 
 @pytest.fixture(scope="module")
 def sweeps(tmp_path_factory):
-    """batch_sweep at batch 8, 3 ticks, on each lanes layout, with a
-    checkpoint."""
+    """batch_sweep at batch 8, 3 ticks, on each layout (``fused`` False:
+    the default, ``vmap``), with a checkpoint."""
     out = {}
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(batch_sweep, "BASE_PARAMS",
@@ -84,8 +85,9 @@ def test_batch_sweep_checkpoint_round_trips(sweeps, fused):
 
 
 def test_batch_sweep_layouts_agree(sweeps):
-    """The two lanes solve bodies on the same per-scenario problems, f32:
-    the same codes and iterations, states within 1e-4."""
+    """The per-instance solve under ``vmap`` and kernel 1's plain version
+    on the same per-scenario problems, f32: the same codes and iterations,
+    states within 1e-4."""
     a, b = sweeps[False][1], sweeps[True][1]
     assert torch.equal(a.termination_states, b.termination_states)
     assert torch.equal(a.solver_iterations, b.solver_iterations)
