@@ -17,11 +17,11 @@ launched at once.
 
 from __future__ import annotations
 
-import time
 from typing import Any, NamedTuple
 
 import torch
 
+from ..utils.tracing import capture_marks, trace_scope
 from .controller import MPC, MPCState
 from .simulator import simulator_step
 
@@ -138,19 +138,28 @@ class CUDAGraphTick:
 
     The kernel wrappers count a launch when they enqueue it, which during
     the capture runs nothing on the device: the counts the capture adds
-    (``launches``) are taken back, and added again at every replay. Also
-    kept: ``capture_s`` and ``instantiate_s``, the host seconds of the
-    capture and of the graph's instantiation, and ``pool_bytes``, the
-    memory the capture reserved for the graph's private pool."""
+    (``launches``) are taken back, and added again at every replay.
+
+    With tracing on (``utils/tracing.py``) the warm-up, the capture (with
+    the bytes it reserved for the graph's private pool) and the
+    instantiation are spans ``graph.warmup``, ``graph.capture`` and
+    ``graph.instantiate``, and each span that ``fn`` opens under the
+    capture is marked in the graph by timing events: :meth:`phase_ms`
+    reads them after a replay."""
 
     def __init__(self, fn, example_args):
         self.inputs = tuple(a.clone() for a in example_args)
-        self.warmup_outputs = self._warm_up(fn, example_args)
+        with trace_scope("graph.warmup"):
+            self.warmup_outputs = self._warm_up(fn, example_args)
         before = launch_counts()
-        self._capture(fn)
+        with trace_scope("graph.capture") as span, capture_marks() as marks:
+            span["pool_bytes"] = self._capture(fn)
         self.launches = tuple(
             a - b for a, b in zip(launch_counts(), before))
         add_launches(self.launches, -1)
+        self.marks = marks
+        with trace_scope("graph.instantiate"):
+            self.graph.instantiate()
 
     def _warm_up(self, fn, args):
         side = _warmup_stream()
@@ -160,19 +169,29 @@ class CUDAGraphTick:
         torch.cuda.current_stream().wait_stream(side)
         return outputs
 
-    def _capture(self, fn):
-        """Sets ``graph``, ``outputs``, ``capture_s``, ``instantiate_s``
-        and ``pool_bytes``."""
-        t0 = time.perf_counter()
+    def _capture(self, fn) -> int:
+        """Captures ``fn`` on the inputs into ``graph`` (instantiated
+        after) and sets ``outputs``; returns the bytes the capture reserved
+        for the graph's private pool."""
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         with torch.cuda.graph(self.graph):
             reserved = torch.cuda.memory_reserved()
             self.outputs = fn(*self.inputs)
-            self.pool_bytes = torch.cuda.memory_reserved() - reserved
-        t1 = time.perf_counter()
-        self.graph.instantiate()
-        self.capture_s = t1 - t0
-        self.instantiate_s = time.perf_counter() - t1
+            return torch.cuda.memory_reserved() - reserved
+
+    def phase_ms(self) -> dict:
+        """Device milliseconds of each span marked at the capture (the
+        lanes tick's ``tick.*`` phases), name by name, in the last replay,
+        read from the timing events that replay recorded: it waits for
+        them, so call it after a replay. Empty if tracing was off at the
+        capture. This is the reading an operator of a fleet would log: it
+        needs no profiler, so it times a replay as an unprofiled run runs
+        it."""
+        out = {}
+        for name, start, end in self.marks:
+            end.synchronize()
+            out[name] = out.get(name, 0.0) + start.elapsed_time(end)
+        return out
 
     def __call__(self, *args):
         for dst, src in zip(self.inputs, args):

@@ -38,6 +38,7 @@ from ..ops.lanes import (bmv, rk4_step_lanes, rk4_step_rows, rollout_rows,
                          wrap_angles_lanes, wrap_angles_rows)
 from ..ops.pallas_kernels import segment_jac_batch_last
 from ..ops.solver import NLSConfig, NLSOutputs, NLSTerminationState
+from ..utils.tracing import trace_scope
 from .closed_loop import ClosedLoopResult, CUDAGraphTick
 from .controller import MPC, MPCOutputs, MPCState
 from .problem import _mgs_qr, _qr_gram_factor, _tri_r_solve, _tri_rt_solve
@@ -592,37 +593,41 @@ def _solve_lanes_impl(problem: _LanesProblem, Z0: _Z, config: NLSConfig,
     reference's single-launch mode); ``fused=False`` the iteration loop of
     :func:`_iterate_xla`."""
     B = problem.B
-    if fused:
-        if not fused_supported(problem, config):
-            raise ValueError(_FUSED_UNSUPPORTED)
-        (xs, u, lam, _, _, _, term, first_order), traces = fused_solve(
-            problem.statics.fused, problem.dynamics_params, problem.x_current,
-            problem.set_point, problem.u_prev, _init_carry(Z0, config),
-            config.max_iterations,
-        )
-        Z = _Z(xs=xs, u=u)
-    else:
-        Z, lam, term, first_order, traces = _iterate_xla(problem, Z0, config)
+    with trace_scope("tick.solve"):
+        if fused:
+            if not fused_supported(problem, config):
+                raise ValueError(_FUSED_UNSUPPORTED)
+            (xs, u, lam, _, _, _, term, first_order), traces = fused_solve(
+                problem.statics.fused, problem.dynamics_params,
+                problem.x_current, problem.set_point, problem.u_prev,
+                _init_carry(Z0, config), config.max_iterations,
+            )
+            Z = _Z(xs=xs, u=u)
+        else:
+            Z, lam, term, first_order, traces = _iterate_xla(problem, Z0,
+                                                             config)
     iter_cost, iter_viol, iter_lambda, iter_alpha, iter_first, applied = traces
 
-    r, c = problem.evaluate(Z)
-    cost = 0.5 * torch.sum(r * r, dim=0)
-    viol = (torch.amax(torch.abs(c), dim=0) if c.shape[0]
-            else Z.u.new_zeros((B,)))
-    outputs = NLSOutputs(
-        termination_state=term,
-        n_iterations=torch.sum(applied, dim=0, dtype=torch.int32),
-        cost=cost,
-        constraint_violation=viol,
-        first_order_norm=first_order,
-        lambda_final=lam,
-        # (iters, B) -> (B, iters): the batch-first layout of the reference.
-        iter_cost=iter_cost.T,
-        iter_violation=iter_viol.T,
-        iter_lambda=iter_lambda.T,
-        iter_step_size=iter_alpha.T,
-        iter_first_order=iter_first.T,
-    )
+    with trace_scope("tick.evaluate"):
+        r, c = problem.evaluate(Z)
+        cost = 0.5 * torch.sum(r * r, dim=0)
+        viol = (torch.amax(torch.abs(c), dim=0) if c.shape[0]
+                else Z.u.new_zeros((B,)))
+        outputs = NLSOutputs(
+            termination_state=term,
+            n_iterations=torch.sum(applied, dim=0, dtype=torch.int32),
+            cost=cost,
+            constraint_violation=viol,
+            first_order_norm=first_order,
+            lambda_final=lam,
+            # (iters, B) -> (B, iters): the batch-first layout of the
+            # reference.
+            iter_cost=iter_cost.T,
+            iter_violation=iter_viol.T,
+            iter_lambda=iter_lambda.T,
+            iter_step_size=iter_alpha.T,
+            iter_first_order=iter_first.T,
+        )
     return Z, outputs
 
 
@@ -664,26 +669,31 @@ def _prepare(mpc: MPC, state: MPCState, x_current, dynamics_params,
 
 
 # ---------------------------------------------------------------------- step
-def step_lanes(mpc: MPC, state: MPCState, x_current, dynamics_params,
-               b_x_set_point=0.0, fused: bool = False):
-    """Batched MPC step in the lanes layout, the counterpart of the
-    reference's ``step_lanes``: ``state`` fields and ``x_current`` ``(B,
-    sd)`` carry a LEADING batch axis; internally the batch is the trailing
-    axis. Requires ``kkt_method="condensed"``. ``fused`` picks the solve
-    body (module docstring); ``fused=True`` raises ``ValueError`` where the
-    fused kernel does not cover the configuration, as the reference does."""
+def _solved(mpc: MPC, state: MPCState, x_current, dynamics_params,
+            b_x_set_point, fused: bool):
+    """The first three phases of a step, each a span: the warm or cold
+    start and the guess rollout (``tick.prepare``), the solve
+    (``tick.solve``) and the final evaluation (``tick.evaluate``). Returns
+    ``(problem, Z0, Z, solver outputs)``."""
     if mpc.params.kkt_method != "condensed":
         raise ValueError(
             "step_lanes implements the condensed KKT path only; got "
             f"kkt_method={mpc.params.kkt_method!r}"
         )
+    with trace_scope("tick.prepare"):
+        problem, Z0 = _prepare(mpc, state, x_current, dynamics_params,
+                               b_x_set_point)
+    Z, solver_outputs = _solve_lanes(problem, Z0, mpc.nls_config, fused)
+    return problem, Z0, Z, solver_outputs
+
+
+def _step_outputs(mpc: MPC, x_current, dynamics_params, problem, Z0, Z,
+                  solver_outputs):
+    """The step's outputs from :func:`_solved`'s: the predicted rollout
+    and the packed solution, ``(MPCOutputs, MPCState)``."""
     spec = mpc.spec
     B, sd = x_current.shape
     N = spec.num_states
-    problem, Z0 = _prepare(mpc, state, x_current, dynamics_params,
-                           b_x_set_point)
-    Z, solver_outputs = _solve_lanes(problem, Z0, mpc.nls_config, fused)
-
     core = mpc.model.dynamics_core
     _, steps2 = rollout_rows(
         lambda xr, u_: core(dynamics_params, xr, u_),
@@ -711,6 +721,23 @@ def step_lanes(mpc: MPC, state: MPCState, x_current, dynamics_params,
         warm=torch.ones((B,), dtype=torch.bool, device=x_current.device),
     )
     return outputs, new_state
+
+
+def step_lanes(mpc: MPC, state: MPCState, x_current, dynamics_params,
+               b_x_set_point=0.0, fused: bool = False):
+    """Batched MPC step in the lanes layout, the counterpart of the
+    reference's ``step_lanes``: ``state`` fields and ``x_current`` ``(B,
+    sd)`` carry a LEADING batch axis; internally the batch is the trailing
+    axis. Requires ``kkt_method="condensed"``. ``fused`` picks the solve
+    body (module docstring); ``fused=True`` raises ``ValueError`` where the
+    fused kernel does not cover the configuration, as the reference does.
+    With tracing on, its phases are spans ``tick.prepare``, ``tick.solve``,
+    ``tick.evaluate`` and ``tick.predict`` (the predicted rollout and the
+    packing)."""
+    solved = _solved(mpc, state, x_current, dynamics_params, b_x_set_point,
+                     fused)
+    with trace_scope("tick.predict"):
+        return _step_outputs(mpc, x_current, dynamics_params, *solved)
 
 
 # ----------------------------------------------------------------- simulator
@@ -756,22 +783,27 @@ def tick_fn_lanes(mpc: MPC, dynamics_params, set_point,
     prediction (B, sd), termination codes, constraint violations,
     iterations)``: the unit the loop repeats and ``CUDAGraphTick``
     captures. ``set_point`` is ``(B,)``; ``dist[0]`` and ``dist[1]`` are
-    the forces at the base and at the first link mass."""
+    the forces at the base and at the first link mass. With tracing on, the
+    tick is five spans in turn: ``tick.prepare``, ``tick.solve``,
+    ``tick.evaluate``, ``tick.predict`` (the predicted rollout, the
+    packing, the failure mask and reset) and ``tick.plant``."""
 
     def tick(x, previous_solution, warm, dist=None):
-        outputs, st = step_lanes(mpc, MPCState(previous_solution, warm),
-                                 x.T, dynamics_params, set_point,
-                                 fused=fused)
-        u0 = outputs.u[:, 0]  # (B,)
-        if auto_reset:
-            failed = mpc.failure_mask(outputs)
-            st = mpc.reset_where(st, failed)
-            u0 = torch.where(failed, torch.zeros_like(u0), u0)
-        x_next = simulator_step_lanes(
-            dynamics_params, x, mpc.params.control_dt, u0,
-            None if dist is None else dist[0],
-            None if dist is None else dist[1], model=mpc.model,
-        )
+        solved = _solved(mpc, MPCState(previous_solution, warm), x.T,
+                         dynamics_params, set_point, fused)
+        with trace_scope("tick.predict"):
+            outputs, st = _step_outputs(mpc, x.T, dynamics_params, *solved)
+            u0 = outputs.u[:, 0]  # (B,)
+            if auto_reset:
+                failed = mpc.failure_mask(outputs)
+                st = mpc.reset_where(st, failed)
+                u0 = torch.where(failed, torch.zeros_like(u0), u0)
+        with trace_scope("tick.plant"):
+            x_next = simulator_step_lanes(
+                dynamics_params, x, mpc.params.control_dt, u0,
+                None if dist is None else dist[0],
+                None if dist is None else dist[1], model=mpc.model,
+            )
         return (x_next, st.previous_solution, st.warm, x.T, u0,
                 outputs.predicted_states[:, -1, :],
                 outputs.solver.termination_state,
@@ -805,6 +837,12 @@ def run_closed_loop_lanes(mpc: MPC, x0, dynamics_params, num_steps: int,
     its slice of ``disturbances`` copied in: the counterpart of the
     reference's one compiled ``lax.scan``. The graph and its memory go
     when the call returns. On the CPU every tick runs eagerly.
+
+    With tracing on (``utils/tracing.py``) the call is a span ``lanes.call``
+    (args ``B``, ``ticks``, ``fused``) holding a ``lanes.eager_tick`` for
+    each eagerly run tick, the graph's ``graph.*`` spans and a
+    ``lanes.replay`` for each replayed tick (copy-in, replay, clones); the
+    graph times the tick's phases on the card (``CUDAGraphTick.phase_ms``).
     """
     B, sd = x0.shape
     dtype, device = x0.dtype, x0.device
@@ -832,20 +870,24 @@ def run_closed_loop_lanes(mpc: MPC, x0, dynamics_params, num_steps: int,
     carry = (x0.T, mpc_state.previous_solution, mpc_state.warm)
     graph = None
     ticks = []
-    for t in range(num_steps):
-        args = carry + dist(t)
-        if graph is not None:
-            out = graph(*args)
-        elif t == 1 and _replays(x0):
-            graph = CUDAGraphTick(tick, args)
-            out = graph.warmup_outputs
-        else:
-            out = tick(*args)
-        ticks.append(out[3:])
-        carry = out[:3]
-    states, controls, term_pred, term_codes, violations, iters = (
-        torch.stack(col, dim=1) for col in zip(*ticks)
-    )
+    with trace_scope("lanes.call", call=True, B=B, ticks=num_steps,
+                     fused=fused):
+        for t in range(num_steps):
+            args = carry + dist(t)
+            if graph is not None:
+                with trace_scope("lanes.replay", tick=t):
+                    out = graph(*args)
+            elif t == 1 and _replays(x0):
+                graph = CUDAGraphTick(tick, args)
+                out = graph.warmup_outputs
+            else:
+                with trace_scope("lanes.eager_tick", tick=t):
+                    out = tick(*args)
+            ticks.append(out[3:])
+            carry = out[:3]
+        states, controls, term_pred, term_codes, violations, iters = (
+            torch.stack(col, dim=1) for col in zip(*ticks)
+        )
     return ClosedLoopResult(
         final_state=carry[0].T,
         final_mpc_state=MPCState(carry[1], carry[2]),

@@ -25,6 +25,7 @@ from .tracing import (
     TraceCollector,
     get_trace_json,
     is_tracing_enabled,
+    join_traces,
     profiler_trace,
     set_tracing_enabled,
     trace_scope,
@@ -36,6 +37,7 @@ __all__ = [
     "TraceCollector",
     "get_trace_json",
     "is_tracing_enabled",
+    "join_traces",
     "leak_check",
     "load_log",
     "load_state",

@@ -50,8 +50,9 @@ path 1's last tick, kernel 2 on the cold and the warm problem, for every
 model), a profile of one eager tick of each single-model path
 (device-busy share, kernel launches), each path's tick and the double's
 and triple's path-1 tick as CUDA-graph replays (the capture's and
-instantiation's seconds, the graph pool's bytes, a replay's median ms
-beside an eager tick's, one replay profiled), with
+instantiation's seconds and the graph pool's bytes from the ``graph.*``
+spans, a replay's median ms beside an eager tick's, its device ms by
+phase, one replay profiled), with
 both kernels' launch layouts (registers, shared bytes per block, resident
 blocks and warps per SM). The per-instance group (``MPC.step``,
 ``run_closed_loop``, ``vmap``; no kernel of the repo lies on it) runs as
@@ -946,21 +947,26 @@ def memory_flat(values, ref):
 
 def time_graphed(tag, mpc, dp, res, fused_flag, eager_ms, card):
     """[timing] of a replayed lanes tick: ``CUDAGraphTick`` over
-    ``tick_fn_lanes`` at the warm state after ``res``'s last tick, its
-    capture's and its instantiation's seconds and its private pool's
-    bytes, the median ms of ``REPLAY_TICKS`` replays (inputs in, replay,
-    outputs cloned) beside ``eager_ms`` (an eager tick's), and one replay
-    under the profiler. The graph goes when this returns."""
+    ``tick_fn_lanes`` at the warm state after ``res``'s last tick, built
+    with tracing on: its capture's and its instantiation's seconds and its
+    private pool's bytes (:func:`graph_stats`), the median ms of
+    ``REPLAY_TICKS`` replays (inputs in, replay, outputs cloned) beside
+    ``eager_ms`` (an eager tick's), the last replay's device ms by phase
+    (``phase_ms``), and one replay under the profiler. The graph goes when
+    this returns."""
     x, mst = res.final_state, res.final_mpc_state
     tick = lanes.tick_fn_lanes(mpc, dp, zero_set_point(x), True, fused_flag)
     args = (x.T, mst.previous_solution, mst.warm)
     torch.cuda.synchronize()
-    graph = cl.CUDAGraphTick(tick, args)
-    out = dict(capture_s=graph.capture_s, instantiate_s=graph.instantiate_s,
-               pool_bytes=graph.pool_bytes,
+    ptu.set_tracing_enabled(True)
+    try:
+        graph = cl.CUDAGraphTick(tick, args)
+    finally:
+        ptu.set_tracing_enabled(False)
+    out = dict(graph_stats(),
                replay_ms=float(np.median(tick_ms(lambda: graph(*args),
                                                  REPLAY_TICKS))),
-               eager_ms=eager_ms,
+               phase_ms=graph.phase_ms(), eager_ms=eager_ms,
                replay_profile=profile_calls(lambda: graph(*args)))
     print(f"[timing] {tag}, the lanes tick as a CUDA-graph replay (warm "
           f"state after the run's last tick): {json.dumps(out)}  ({card})",
@@ -1530,11 +1536,17 @@ def same_bits(a, b):
         for x, y in zip(a, b))
 
 
-def graph_stats(g):
-    """A ``CUDAGraphTick``'s capture and instantiation seconds and its
-    pool's bytes."""
-    return dict(capture_s=g.capture_s, instantiate_s=g.instantiate_s,
-                pool_bytes=g.pool_bytes)
+def graph_stats():
+    """The newest ``CUDAGraphTick``'s capture and instantiation seconds and
+    its pool's bytes: its ``graph.capture`` and ``graph.instantiate``
+    spans, so it has to be built with tracing on."""
+    events = json.loads(ptu.TraceCollector.get_instance()
+                        .get_trace_json())["traceEvents"]
+    last = {e["name"]: e for e in events}
+    capture, inst = last["graph.capture"], last["graph.instantiate"]
+    return dict(capture_s=capture["dur"] / 1e6,
+                instantiate_s=inst["dur"] / 1e6,
+                pool_bytes=capture["args"]["pool_bytes"])
 
 
 def diff_probe_mpc():
@@ -1590,6 +1602,7 @@ def run_diff(dev, card):
     ones."""
     from cartpole_tpu_torch.tools import sysid
 
+    ptu.set_tracing_enabled(True)  # graph_stats reads each build's spans
     t_group = time.perf_counter()
     f32, f64 = torch.float32, torch.float64
 
@@ -1820,10 +1833,10 @@ def run_diff(dev, card):
                     f"(.backward() for unrolled): {same_eager}")
         ms = tick_ms(lambda: g(*args), DIFF_GRAPH_REPS)
         replayed[tag] = dict(median_ms=float(np.median(ms)),
-                             least_ms=min(ms), **graph_stats(g))
+                             least_ms=min(ms), **graph_stats())
         print(f"[diff-graph] {tag}: the replay against the eager run on the "
               f"same inputs (the capture's warm-up): identical bits "
-              f"{same}{also}; {json.dumps(graph_stats(g))}, {build_s:.2f} "
+              f"{same}{also}; {json.dumps(graph_stats())}, {build_s:.2f} "
               f"s to build (warm-up, capture, instantiation), the first "
               f"replay {replay_s * 1e3:.1f} ms, then median "
               f"{replayed[tag]['median_ms']:.1f} ms of {DIFF_GRAPH_REPS}  "
@@ -1884,7 +1897,7 @@ def run_diff(dev, card):
     print(f"[sysid] tools/sysid.py, all {sysid.STEPS} Adam steps through one "
           f"CUDA-graph capture of grad_and_value(loss) (8 states, window 20, "
           f"f64): {len(made)} capture(s), "
-          f"{json.dumps(graph_stats(made[0]))}; recovered m_1, l_1 "
+          f"{json.dumps(graph_stats())}; recovered m_1, l_1 "
           f"{v.cpu().tolist()}, abs err {err.tolist()} (gate < "
           f"{sysid.TOLERANCE:g}); loss {losses[0]!r} -> {losses[-1]!r}, "
           f"every step's finite {bool(np.isfinite(losses).all())}; the first "

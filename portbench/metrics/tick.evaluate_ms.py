@@ -1,0 +1,10 @@
+"""Device milliseconds of a replayed tick's ``tick.evaluate`` phase (the final
+evaluation and the solver's outputs): the median over the traced call's
+read replays of the graph's own timing events (``CUDAGraphTick.phase_ms``,
+``phases.py``)."""
+
+from portbench import phases
+
+
+def read(record):
+    return phases.median_ms(record, "tick.evaluate")

@@ -1,0 +1,9 @@
+"""Device milliseconds of a replayed tick's ``tick.plant`` phase (the plant's
+substeps): the median over the traced call's read replays of the graph's
+own timing events (``CUDAGraphTick.phase_ms``, ``phases.py``)."""
+
+from portbench import phases
+
+
+def read(record):
+    return phases.median_ms(record, "tick.plant")

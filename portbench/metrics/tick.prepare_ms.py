@@ -1,0 +1,10 @@
+"""Device milliseconds of a replayed tick's ``tick.prepare`` phase (the warm
+or cold start and the guess rollout): the median over the traced call's
+read replays of the graph's own timing events (``CUDAGraphTick.phase_ms``,
+``phases.py``)."""
+
+from portbench import phases
+
+
+def read(record):
+    return phases.median_ms(record, "tick.prepare")

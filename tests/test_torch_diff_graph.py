@@ -53,9 +53,9 @@ class _StubGraph(cl.CUDAGraphTick):
             for dst, src in zip(self.outputs, fn(*self.inputs)):
                 dst.copy_(src)
 
-        self.graph = type("Graph", (), {"replay": staticmethod(replay)})()
-        self.capture_s = self.instantiate_s = 0.0
-        self.pool_bytes = 0
+        self.graph = type("Graph", (), {"replay": staticmethod(replay),
+                                        "instantiate": lambda self: None})()
+        return 0
 
 
 def _sysid_loss(method="ift"):

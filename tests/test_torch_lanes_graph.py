@@ -11,6 +11,7 @@ of kernel 2 on path 2, whatever the capture counted. A capture that fails
 raises.
 """
 
+import json
 import math
 
 import numpy as np
@@ -23,6 +24,7 @@ from cartpole_tpu_torch.mpc import closed_loop as cl  # noqa: E402
 from cartpole_tpu_torch.mpc import lanes  # noqa: E402
 from cartpole_tpu_torch.ops import fused  # noqa: E402
 from cartpole_tpu_torch.ops import pallas_kernels as pk  # noqa: E402
+from cartpole_tpu_torch.utils import tracing  # noqa: E402
 
 B, T = 3, 4
 PARAMS = dict(window_length=6, state_spacing=2, max_iterations=3)
@@ -86,14 +88,19 @@ class _StubGraphTick(cl.CUDAGraphTick):
 
         def replay():
             before = cl.launch_counts()
-            for dst, src in zip(self.outputs, fn(*self.inputs)):
-                dst.copy_(src)
+            traced = tracing.is_tracing_enabled()
+            tracing.set_tracing_enabled(False)  # a replay runs no host code
+            try:
+                for dst, src in zip(self.outputs, fn(*self.inputs)):
+                    dst.copy_(src)
+            finally:
+                tracing.set_tracing_enabled(traced)
             cl.add_launches(tuple(
                 a - b for a, b in zip(cl.launch_counts(), before)), -1)
 
-        self.graph = type("Graph", (), {"replay": staticmethod(replay)})()
-        self.capture_s = self.instantiate_s = 0.0
-        self.pool_bytes = 0
+        self.graph = type("Graph", (), {"replay": staticmethod(replay),
+                                        "instantiate": lambda self: None})()
+        return 0
 
 
 def _counting(monkeypatch):
@@ -149,3 +156,78 @@ def test_a_failed_capture_raises(monkeypatch):
     monkeypatch.setattr(lanes, "CUDAGraphTick", Broken)
     with pytest.raises(RuntimeError, match="capturing"):
         pt.run_closed_loop_lanes(mpc, x0, dp, T, fused=True)
+
+
+PHASES = ["tick.prepare", "tick.solve", "tick.evaluate", "tick.predict",
+          "tick.plant"]
+
+
+def _traced_run(monkeypatch, replayed, on=True):
+    """A fused run of T ticks with tracing ``on``, eager or through the
+    stand-in graph: its result and its spans in the order they opened."""
+    mpc, dp, x0, dist = _setup()
+    if replayed:
+        monkeypatch.setattr(lanes, "_replays", lambda x: True)
+        monkeypatch.setattr(lanes, "CUDAGraphTick", _StubGraphTick)
+    collector = tracing.TraceCollector.get_instance()
+    traced = tracing.is_tracing_enabled()
+    tracing.set_tracing_enabled(on)
+    try:
+        collector.clear()
+        res = pt.run_closed_loop_lanes(mpc, x0, dp, T, disturbances=dist,
+                                       fused=True)
+        events = json.loads(collector.get_trace_json())["traceEvents"]
+    finally:
+        tracing.set_tracing_enabled(traced)
+    return res, sorted(events, key=lambda e: e["ts"])
+
+
+@pytest.mark.parametrize("replayed", [False, True],
+                         ids=["eager", "replayed"])
+def test_spans_of_a_call(monkeypatch, replayed):
+    """``lanes.call`` holds tick 0 eager, then (replayed) the graph's
+    warm-up, capture and instantiation and a ``lanes.replay`` a tick, with
+    no phase under a replay, which runs no host code; (eager) an eager tick
+    a tick. Each eager run of the tick is its five phases in turn."""
+    _, events = _traced_run(monkeypatch, replayed)
+    if replayed:
+        want = (["lanes.call", "lanes.eager_tick"] + PHASES
+                + ["graph.warmup"] + PHASES + ["graph.capture"] + PHASES
+                + ["graph.instantiate"] + ["lanes.replay"] * (T - 2))
+    else:
+        want = ["lanes.call"] + (["lanes.eager_tick"] + PHASES) * T
+    assert [e["name"] for e in events] == want
+    call = events[0]["args"]
+    assert call["B"] == B and call["ticks"] == T and call["fused"] is True
+    assert call["parent"] is None and call["call"] == call["id"]
+    holder = None
+    for e in events[1:]:
+        a = e["args"]
+        assert a["call"] == call["id"]
+        if e["name"].startswith("tick."):
+            assert a["parent"] == holder["args"]["id"]
+            assert holder["ts"] <= e["ts"]
+            assert e["ts"] + e["dur"] <= holder["ts"] + holder["dur"] + 1
+        else:
+            assert a["parent"] == call["id"]
+            holder = e
+    ticks = [e["args"]["tick"] for e in events
+             if e["name"] in ("lanes.eager_tick", "lanes.replay")]
+    assert ticks == ([0, 2, 3] if replayed else list(range(T)))
+    if replayed:
+        (capture,) = [e for e in events if e["name"] == "graph.capture"]
+        assert capture["args"]["pool_bytes"] == 0
+
+
+@pytest.mark.parametrize("replayed", [False, True],
+                         ids=["eager", "replayed"])
+def test_tracing_off_records_nothing_and_changes_no_bit(monkeypatch,
+                                                        replayed):
+    on, spans = _traced_run(monkeypatch, replayed)
+    off, none = _traced_run(monkeypatch, replayed, on=False)
+    assert spans and none == []
+    for name in on._fields:
+        a, b = getattr(on, name), getattr(off, name)
+        for x, y in zip(a if name == "final_mpc_state" else (a,),
+                        b if name == "final_mpc_state" else (b,)):
+            assert torch.equal(x, y), name

@@ -212,9 +212,67 @@ def test_trace_scope_records_chrome_event():
             pass
         (ev,) = json.loads(utils.get_trace_json())["traceEvents"]
         assert ev["name"] == "solve" and ev["ph"] == "X"
-        assert ev["args"] == {"batch": 4} and "ts" in ev and "dur" in ev
+        assert ev["args"] == {"batch": 4, "id": ev["args"]["id"],
+                              "parent": None, "call": None}
+        assert "ts" in ev and "dur" in ev
     finally:
         utils.set_tracing_enabled(before)
+
+
+def test_trace_scope_ids_parents_and_calls():
+    """Each span names its parent, the innermost span open around it, and
+    its call, the ``call=True`` span it runs in; a span's own entries join
+    its args; outside a CUDA-graph capture no device mark is made."""
+    from cartpole_tpu_torch.utils.tracing import capture_marks
+
+    before = utils.is_tracing_enabled()
+    utils.set_tracing_enabled(True)
+    try:
+        utils.TraceCollector.get_instance().clear()
+        with utils.trace_scope("outer"):
+            with utils.trace_scope("call", call=True, B=3) as span:
+                with capture_marks() as marks:
+                    with utils.trace_scope("inner"):
+                        pass
+                span["pool_bytes"] = 7
+        events = json.loads(utils.get_trace_json())["traceEvents"]
+    finally:
+        utils.set_tracing_enabled(before)
+    args = {e["name"]: e["args"] for e in events}
+    assert [e["name"] for e in events] == ["inner", "call", "outer"]
+    assert args["outer"]["parent"] is None and args["outer"]["call"] is None
+    assert args["call"]["parent"] == args["outer"]["id"]
+    assert args["call"]["call"] == args["call"]["id"]
+    assert args["call"]["B"] == 3 and args["call"]["pool_bytes"] == 7
+    assert args["inner"]["parent"] == args["call"]["id"]
+    assert args["inner"]["call"] == args["call"]["id"]
+    assert len({a["id"] for a in args.values()}) == 3
+    assert marks == []
+
+
+def test_spans_join_the_profiler_clock(tmp_path):
+    """A span's times, laid over a ``profiler_trace`` by ``join_traces``,
+    bracket the ``record_function`` of the same name in the profile."""
+    before = utils.is_tracing_enabled()
+    utils.set_tracing_enabled(True)
+    try:
+        utils.TraceCollector.get_instance().clear()
+        with utils.profiler_trace(str(tmp_path)):
+            with utils.trace_scope("joined"):
+                torch.ones(1000).cumsum(0)
+        spans = json.loads(utils.get_trace_json())
+    finally:
+        utils.set_tracing_enabled(before)
+    profile = json.loads((tmp_path / "trace.json").read_text())
+    joined = utils.join_traces(profile, spans)
+    (mine,) = [e for e in joined["traceEvents"]
+               if e["name"] == "joined" and e.get("pid") == "spans"]
+    (theirs,) = [e for e in profile["traceEvents"]
+                 if e["name"] == "joined" and e.get("ph") == "X"]
+    slack = 20.0  # us, for the profiler's conversion of its clock
+    assert theirs["ts"] >= mine["ts"] - slack
+    assert (theirs["ts"] + theirs["dur"]
+            <= mine["ts"] + mine["dur"] + slack)
 
 
 def test_trace_scope_disabled_is_noop():
